@@ -16,3 +16,9 @@ jax.config.update("jax_platform_name", "cpu")
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (an H100); skips without one"
+    )
