@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cache read path on one CUDA card (an H100).
+"""Drive the PyTorch port on one CUDA card (an H100): the cache read path
+and, behind it, the miss path through the LLM serving engine.
 
     python3 chip_smoke.py [--profile]
 
-It builds the read path's kernel from the sources in this checkout, holds
-the kernel against its plain PyTorch version on the card, then serves a
-burst of requests through the port's real entry points at full width:
+It builds the port's three CUDA libraries from the sources in this checkout
+(one nvcc each, all at once), holds every kernel against its plain PyTorch
+version on the card, checks the full-width model against its CPU run, and
+then serves a burst of requests through the port's real entry points:
 
-    CacheService -> EnhancedClient (+ MockLLM on a miss)
+    CacheService -> EnhancedClient
       -> HierarchicalCache(L1 GenerativeCache 16384, L2 GenerativeCache 131072)
-      -> one [2, 131072, 768] float32 bank (805 MB) searched by the
-         similarity_topk lanes kernel, Contriever-msmarco (12 x 768, random
-         init from a seed) embedding the queries on the card
+         one [2, 131072, 768] float32 bank (805 MB) searched by the
+         similarity_topk lanes kernel (B1), Contriever-msmarco (12 x 768,
+         random init from a seed) embedding the queries on the card
+      -> on a miss: ModelBackend -> ServingEngine(qwen1.5-0.5b, 24 x 1024,
+         bfloat16, random init from a seed; max_batch 4, max_seq 256)
+         prefill through the flash_attention kernel (B4), every decode step
+         through the decode_attention kernel (B3)
 
-Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA), ``build:``
-(kernel build seconds), one ``check:`` per kernel-vs-plain case, ``time:``
-lines (kernel / plain / library / bound at the main-path shapes, each with
-the card and its power limit), ``fill:``, ``traffic:`` (hits, generative
-hits, misses, latency p50s), ``read:`` (p50 of one fused read per batch
-bucket), ``decide:`` (one read's decisions recomputed with the plain
-version), ``kernels:`` (launches during the traffic), then a JSON line of
+Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
+``build:`` (nvcc seconds per library), ``check:`` per kernel-vs-plain case
+(B1, B2 = B1 at L = 1, B3, B4), ``time:`` lines (kernel / plain / library
+device times from a profiler trace, the kernel's host rate, and the bound,
+at the main-path shapes and one longer shape each, with the card and its
+power limit), ``model:`` (full-width float32 model on the card against the
+CPU), ``engine:`` (full-width bfloat16 engine: prefill and decode-step p50,
+tokens/s, attention launches per prefill and per decode step) and
+``profile: decode`` (one decode step's device time by kernel, kernels per
+step and busy share), ``fill:``, ``traffic:`` (hits, generative hits,
+misses served by the engine, latency p50s, launch counts), ``decide:`` (one
+read's decisions recomputed with the plain version), ``read:`` (p50 of one
+fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
+lookups, each store search one call of ``ops.similarity_topk``),
+``kernels:`` (launches per kernel on the main path), then a JSON line of
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
-``{"ok": true, "device": {...}}``. ``--profile`` adds ``profile:`` lines
-after ``read:``: one fused read's device time by kernel from a
-``torch.profiler`` trace, and the device's busy share. Any failure raises,
-and the exit code is then non-zero. It exits non-zero without a CUDA device, and when the
-``src/repro_torch`` package is not beside it.
+``{"ok": true, "device": {...}}``.
+``--profile`` adds ``profile:`` lines after ``read:``: one fused read's
+device time by kernel and the device's busy share. Any failure raises, and
+the exit code is then non-zero. It exits non-zero without a CUDA device,
+and when the ``src/repro_torch`` package is not beside it.
 """
 import argparse
 import json
@@ -39,8 +53,14 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (no TF32)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 TOL = 2e-5  # the reference kernel tests' tolerance (float32 sums in another order)
+BF16_TOL = 2e-2  # the same tests' bfloat16 tolerance
+MODEL_TOL = 1e-3  # float32 logits after 24 layers summed in another order
 L1_CAP, L2_CAP, DIM, TOPK = 16384, 131072, 768, 4
+LLM = "qwen1.5-0.5b"
+ENGINE_BATCH, ENGINE_SEQ, NEW_TOKENS = 4, 256, 16
+PROMPT = 32  # ModelBackend pads every prompt to 32 tokens
 
 
 def smi() -> str:
@@ -51,7 +71,9 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def host_ms(fn, iters=20, warmup=3):
+    """CUDA events around ``iters`` back-to-back calls: where a call's kernels
+    are short, this reads how fast the host queues them, not the device."""
     import torch
 
     for _ in range(warmup):
@@ -63,6 +85,27 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time of one call of ``fn``: the summed durations of the kernels
+    (copies and memsets included) it runs on the card, from a torch.profiler
+    trace of ``iters`` calls. Raises if the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler trace holds no device time")
+    return total_us / 1e3 / iters
 
 
 def check_case(name, db, valid, q, k, kern, ops_kw=None):
@@ -131,8 +174,9 @@ def kernel_checks(kern, dev):
 
 
 def kernel_times(kern, dev, gpu):
-    """Kernel, plain and library times at the main-path shape per batch
-    bucket, beside the card's bound for the same work."""
+    """Kernel, plain and library device times at the main-path shape per
+    batch bucket, beside the card's bound for the same work; the kernel's
+    host rate (``host_ms``) beside them."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -142,14 +186,15 @@ def kernel_times(kern, dev, gpu):
     out = {}
     for Q in (1, 8, 64):
         q = torch.randn((Q, DIM), generator=g, device=dev)
-        k_ms = cuda_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK))
-        p_ms = cuda_ms(lambda: kern.similarity_topk_lanes_plain(db, valid, q, TOPK), iters=5)
+        k_ms = device_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK))
+        h_ms = host_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK))
+        p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db, valid, q, TOPK), iters=5)
 
         def library():
             s = torch.matmul(q.unsqueeze(0), db.transpose(1, 2))
             return torch.topk(s.masked_fill(~valid[:, None, :], float("-inf")), TOPK, dim=-1)
 
-        l_ms = cuda_ms(library, iters=10)
+        l_ms = device_ms(library, iters=10)
         L, N, D = db.shape
         nbytes = db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * L * Q * TOPK * 4
         flops = 2 * Q * L * N * D
@@ -159,16 +204,449 @@ def kernel_times(kern, dev, gpu):
         by = "bytes" if t_bytes >= t_ops else "operations"
         out[Q] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
         print(f"time: similarity_topk_lanes L=2 N={N} D={D} Q={Q} k={TOPK} "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
     return out
 
 
-def main_path(dev, gpu, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
-    """The port's read path end to end through its user entry points.
-    ``cfg``/caps default to the full-width configuration; smaller ones
-    rehearse the same path on the CPU. ``profile`` adds a traced
-    breakdown of one fused read (``profile_read``)."""
+def build_all():
+    """One nvcc per CUDA source, all started together; prints each
+    library's build time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.similarity_topk import kernel as tk
+
+    def timed(lib):
+        t0 = time.perf_counter()
+        lib.build()
+        return lib.src.name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        done = list(ex.map(timed, [tk.LIB, fk.LIB, dk.LIB]))
+    for name, sec in done:
+        print(f"build: {name} nvcc sm_90a {sec:.2f} s")
+    print(f"build: all three libraries {time.perf_counter() - t0:.2f} s wall")
+
+
+def close_check(name, got, want, tol):
+    """Kernel output against its plain version on the same card tensors;
+    raises on disagreement. Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, atol=tol, rtol=tol)
+    print(f"check: {name} max_abs_err={err:.3e} tol={tol} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: {name}")
+    return err
+
+
+def b2_checks(kern, dev):
+    """B2, the single-store form: ops.similarity_topk launches the lanes
+    kernel at L = 1; held against the same lookup through the plain version."""
+    import torch
+
+    from repro_torch.kernels.similarity_topk import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = 0.0
+    # the first case is the store search's: unit cosine rows, prenormalized
+    for (N, D, Q, k, metric, pre) in ((L2_CAP, DIM, 8, TOPK, "cosine", True),
+                                      (700, 128, 3, 5, "dot", False),
+                                      (2048, 768, 8, 4, "cosine", False)):
+        db = torch.randn((N, D), generator=g, device=dev)
+        if pre:
+            db /= torch.linalg.vector_norm(db, dim=-1, keepdim=True)
+        valid = torch.rand((N,), generator=g, device=dev) < 0.9
+        q = torch.randn((Q, D), generator=g, device=dev)
+        before = (kern.launches, ops.single_store_launches)
+        s1, i1 = ops.similarity_topk(db, valid, q, k=k, metric=metric, prenormalized=pre)
+        if (kern.launches, ops.single_store_launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("similarity_topk did not launch the lanes kernel once")
+        s2, i2 = ops._similarity_topk_lanes(db[None], valid[None], q, k=k, metric=(metric,),
+                                            prenormalized=pre,
+                                            topk=kern.similarity_topk_lanes_plain)
+        name = f"B2 similarity_topk N={N} D={D} Q={Q} k={k} {metric} prenormalized={pre}"
+        worst = max(worst, close_check(name, s1, s2[:, 0], TOL))
+        if not torch.equal(i1.cpu(), i2[:, 0].cpu()):
+            raise AssertionError(f"indices differ: {name}")
+    return worst
+
+
+FLASH_CASES = [
+    # B, S, H, KH, Dh, window, softcap
+    (1, PROMPT, 16, 16, 64, 0, 0.0),  # the main path's prefill
+    (1, 100, 8, 2, 64, 0, 0.0),  # ragged S (not a multiple of the 64-row tile), GQA
+    (2, 256, 8, 2, 64, 0, 0.0),  # GQA
+    (2, 512, 4, 1, 64, 128, 50.0),  # MQA + window + softcap
+    (1, 128, 4, 4, 128, 0, 30.0),  # softcap, Dh 128
+    (2, 77, 4, 2, 16, 7, 0.0),  # ragged + window, Dh 16 (the smoke model's)
+    (1, 2048, 16, 16, 64, 0, 0.0),  # the longer shape
+]
+DECODE_CASES = [
+    # B, S, H, KH, Dh, window, softcap, lengths
+    (ENGINE_BATCH, ENGINE_SEQ, 16, 16, 64, 0, 0.0, (1, 17, 256, 40)),  # the main path's decode
+    (2, 512, 8, 2, 64, 0, 0.0, (256, 170)),  # GQA
+    (3, 1024, 8, 8, 32, 256, 0.0, (512, 341, 256)),  # window
+    (2, 512, 4, 1, 64, 128, 50.0, (1, 512)),  # MQA + window + softcap
+    (2, 300, 4, 4, 128, 0, 0.0, (0, 299)),  # an empty sequence gives zeros
+    (ENGINE_BATCH, 8192, 16, 16, 64, 0, 0.0, (8192,) * 4),  # the longer shape
+]
+
+
+def attention_checks(dev):
+    """B4 (flash) and B3 (decode) against their plain versions on the card,
+    float32 at 2e-5 and bfloat16 at 2e-2. Returns the worst error of each."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {"flash": 0.0, "decode": 0.0}
+    for dt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for B, S, H, KH, Dh, w, cap in FLASH_CASES:
+            q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(dt)
+                       for n in (H, KH, KH))
+            got = fk.flash_attention_cuda(q, k, v, window=w, softcap=cap)
+            want = fk.flash_attention_plain(q, k, v, window=w, softcap=cap)
+            name = f"B4 flash {tag} B={B} S={S} H={H} KH={KH} Dh={Dh} window={w} softcap={cap}"
+            worst["flash"] = max(worst["flash"], close_check(name, got, want, tol))
+        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES:
+            q = torch.randn((B, H, Dh), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt) for _ in "kv")
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = dk.decode_attention_cuda(q, k, v, lengths, window=w, softcap=cap)
+            want = dk.decode_attention_plain(q, k, v, lengths, window=w, softcap=cap)
+            name = (f"B3 decode {tag} B={B} S={S} H={H} KH={KH} Dh={Dh} window={w} "
+                    f"softcap={cap} lengths={list(lens)}")
+            worst["decode"] = max(worst["decode"], close_check(name, got, want, tol))
+    return worst
+
+
+def _bound(nbytes, flops, flop_rate):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_times(dev, gpu):
+    """Kernel, plain and library device times (bfloat16, the engine's dtype),
+    and the kernel's host rate, for B4
+    at the engine's prefill (B=1, S=32) and at S=2048, and for B3 at the
+    engine's decode (B=4, S=256, the traffic's lengths) and at S=8192;
+    bounds count the keys each query really attends to."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    out = {}
+    for S in (PROMPT, 2048):
+        H, Dh = 16, 64
+        q, k, v = (torch.randn((1, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "qkv")
+        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v))
+        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v))
+        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v), iters=5)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
+        pairs = S * (S + 1) // 2  # causal: the keys each query attends to
+        bound, by = _bound(4 * S * H * Dh * 2, 4 * H * Dh * pairs, BF16_FLOP_PER_S)
+        out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+        print(f"time: flash_attention bf16 B=1 S={S} H={H} KH={H} Dh={Dh} causal "
+              f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={l_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
+    for S, lens in ((ENGINE_SEQ, (48, 40, 33, 1)), (8192, (8192,) * 4)):
+        B, H, Dh = ENGINE_BATCH, 16, 64
+        q = torch.randn((B, H, Dh), generator=g, device=dev).to(bf16)
+        k, v = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "kv")
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
+        k_ms = device_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
+        h_ms = host_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
+        p_ms = device_ms(lambda: dk.decode_attention_plain(q, k, v, lengths), iters=5)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
+        rows = sum(lens)  # live cache rows read
+        bound, by = _bound(2 * rows * H * Dh * 2 + 2 * B * H * Dh * 2 + B * 4,
+                           4 * H * Dh * rows, BF16_FLOP_PER_S)
+        out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+        print(f"time: decode_attention bf16 B={B} S={S} H={H} KH={H} Dh={Dh} "
+              f"lengths={list(lens)} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
+              f"plain_ms={p_ms:.4f} "
+              f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by}) "
+              f"share_of_bound={bound / k_ms:.3f} [{gpu}]")
+    return out
+
+
+def b2_times(kern, dev, gpu, Q=1):
+    """B2 at its path's shape: one [131072, 768] float32 store of unit rows
+    searched for one query, as ``InMemoryVectorStore.search`` does."""
+    import torch
+
+    from repro_torch.kernels.similarity_topk import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    db = torch.randn((L2_CAP, DIM), generator=g, device=dev)
+    db /= torch.linalg.vector_norm(db, dim=-1, keepdim=True)
+    valid = torch.rand((L2_CAP,), generator=g, device=dev) < 0.9
+    q = torch.randn((Q, DIM), generator=g, device=dev)
+    q /= torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+    def kernel():
+        return ops.similarity_topk(db, valid, q, k=TOPK, metric="cosine", prenormalized=True)
+
+    k_ms, h_ms = device_ms(kernel), host_ms(kernel)
+    p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db[None], valid[None], q, TOPK),
+                     iters=5)
+    l_ms = device_ms(lambda: torch.topk((q @ db.T).masked_fill(~valid[None], float("-inf")),
+                                        TOPK, dim=-1), iters=10)
+    bound, by = _bound(db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * Q * TOPK * 4,
+                       2 * Q * L2_CAP * DIM, FP32_FLOP_PER_S)
+    print(f"time: similarity_topk (B2, lanes kernel at L=1) N={L2_CAP} D={DIM} Q={Q} "
+          f"k={TOPK} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms={l_ms:.4f} "
+          f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+
+
+def model_check(dev, steps=4):
+    """The full-width model in float32 with one set of weights, on the card
+    (kernels, TF32 off) and on the CPU (plain versions): one 32-token
+    prefill and ``steps`` teacher-forced decode steps. Raises if a logit
+    differs by more than ``MODEL_TOL``, or if greedy tokens differ where the
+    CPU logits' top-2 gap exceeds 2e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM), dtype="float32")
+    cpu = torch.device("cpu")
+    params_cpu = T.init_params(cfg, SEED, device=cpu)
+    params_dev = _tree_to(params_cpu, dev)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (1, PROMPT + steps))
+    worst, flips, runs = 0.0, 0, []
+    for params, d in ((params_dev, dev), (params_cpu, cpu)):
+        cache = T.init_cache(cfg, 1, ENGINE_SEQ, device=d)
+        t = torch.as_tensor(toks, device=d)
+        logits, _ = T.prefill(params, cfg, {"tokens": t[:, :PROMPT]}, cache)
+        out = [logits.cpu()]
+        for i in range(steps):
+            pos = torch.tensor([PROMPT + i], device=d)
+            logits, _ = T.decode_step(params, cfg, t[:, PROMPT + i:PROMPT + i + 1], pos, cache)
+            out.append(logits.cpu())
+        runs.append(out)
+    for got, want in zip(*runs):
+        worst = max(worst, float((got - want).abs().max()))
+        top2 = torch.topk(want, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2e-3
+        flips += int((decided & (got.argmax(-1) != want.argmax(-1))).sum())
+    finite = all(bool(torch.isfinite(x).all()) for x in runs[0])
+    print(f"model: {LLM} float32 layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"params={sum(x.numel() for x in _leaves(params_cpu))} prefill S={PROMPT} + "
+          f"{steps} decode steps, card (kernels) vs CPU (plain) max_abs_logit_err={worst:.3e} "
+          f"tol={MODEL_TOL} greedy_flips={flips} finite={finite} "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst > MODEL_TOL or flips or not finite:
+        raise AssertionError("the model on the card disagrees with its CPU run")
+    return worst
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def engine_phase(dev, gpu):
+    """ServingEngine at full width in bfloat16 on the card: prompts of mixed
+    lengths through ``generate``; prefill and decode-step p50, tokens/s,
+    and the attention launches against the engine's own counts. Returns the
+    engine, warm, for the traffic."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(LLM)
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ, seed=SEED,
+                           device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    engine.generate([rng.integers(0, cfg.vocab_size, 8)], max_new_tokens=2)  # warm-up
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 32, 12, 27, 9, 20)]
+    fk.reset_launches()
+    dk.reset_launches()
+    m0 = dict(engine.metrics)
+    t1 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    wall = time.perf_counter() - t1
+    steps = engine.metrics["decode_steps"] - m0["decode_steps"]
+    flash_n, decode_n = fk.launches, dk.launches  # read before the timing loops below
+    per_call = cfg.num_layers if dev.type == "cuda" else 0  # the CPU runs the plain versions
+    if flash_n != per_call * len(prompts) or decode_n != per_call * steps:
+        raise AssertionError(f"attention launches flash={flash_n} decode={decode_n} "
+                             f"for {len(prompts)} prefills and {steps} decode steps")
+    if [len(o) for o in outs] != [NEW_TOKENS] * len(prompts):
+        raise AssertionError(f"generated lengths {[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("a generated token lies outside the vocabulary")
+
+    # the two model calls the engine makes, timed at its shapes
+    slot = {k: v[:, :1] for k, v in engine.cache.items()}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, PROMPT)), device=dev)
+
+    def prefill():
+        return T.prefill(engine.params, cfg, {"tokens": toks}, slot)
+
+    step_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, 1)), device=dev)
+    step_pos = torch.tensor([48, 40, 33, 0], device=dev)
+
+    def decode():
+        return T.decode_step(engine.params, cfg, step_toks, step_pos, engine.cache)
+
+    def p50_ms(fn, n=15):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts[3:])
+
+    pre_ms, dec_ms = p50_ms(prefill), p50_ms(decode)
+    print(f"engine: {LLM} bfloat16 params={sum(x.numel() for x in _leaves(engine.params))} "
+          f"max_batch={ENGINE_BATCH} max_seq={ENGINE_SEQ} setup_s={setup_s:.1f} "
+          f"prompts={[len(p) for p in prompts]} new_tokens={NEW_TOKENS} "
+          f"decode_steps={steps} wall_s={wall:.3f} "
+          f"tokens_per_s={len(prompts) * NEW_TOKENS / wall:.1f} "
+          f"prefill_S{PROMPT}_p50_ms={pre_ms:.3f} decode_step_B{ENGINE_BATCH}_p50_ms={dec_ms:.3f} "
+          f"prefills={len(prompts)} flash_launches={flash_n} "
+          f"flash_launches_per_prefill={flash_n / len(prompts):g} decode_launches={decode_n} "
+          f"decode_launches_per_step={decode_n / steps:g} [{gpu}]")
+    profile_decode(decode, gpu)
+    return engine
+
+
+def profile_decode(decode, gpu, steps=5):
+    """Where one decode step's time goes: device time per kernel from a
+    torch.profiler trace, launches per step, and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    decode()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            decode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / steps
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3 / steps, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    launches = sum(n for _, n in by_name.values()) / steps
+    if device_ms == 0.0:
+        print(f"profile: decode step: the trace holds no device time; busy share not "
+              f"measured [{gpu}]")
+        return
+    groups = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, (ms, _) in by_name.items():
+        if "decode_fwd" in name:
+            groups["decode_attention"] += ms
+        elif any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    print(f"profile: decode step B={ENGINE_BATCH} wall_ms={wall_ms:.3f} "
+          f"device_ms={device_ms:.3f} busy_share={device_ms / wall_ms:.3f} "
+          f"kernels_per_step={launches:.1f} "
+          + " ".join(f"{g}_ms={v:.3f}" for g, v in groups.items()) + f" [{gpu}]")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"profile:   {ms:.4f} ms/step  x{n / steps:g}  {name[:100]}")
+
+
+def store_phase(enc, dev, gpu, queries, cap=L2_CAP):
+    """B2's own path: a standalone cache over one store (one [1, cap, 768]
+    lane) answering ``lookup`` one query at a time; each store search is a
+    call of ``ops.similarity_topk``, the single-store form. Counts are set
+    to 0 just before the lookups and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GenerativeCache
+    from repro_torch.kernels.similarity_topk import kernel as kern
+    from repro_torch.kernels.similarity_topk import ops
+
+    cache = GenerativeCache(enc, threshold=0.9, t_single=0.5, t_combined=1.5, capacity=cap,
+                            max_sources=TOPK, use_pallas=True, device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    n_fill = int(0.9 * cap)
+    vecs = rng.standard_normal((n_fill, enc.dim)).astype(np.float32)
+    cache.insert_batch([f"store {i}" for i in range(n_fill)],
+                       [f"store answer {i}" for i in range(n_fill)], vecs=vecs)
+    for q in queries[:4]:  # warm-up
+        cache.lookup(q)
+    bank = cache.store._bank
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kern.reset_launches()
+    ops.reset_single_store_launches()
+    d0 = bank.dispatches
+    t0 = time.perf_counter()
+    for q in queries:
+        cache.lookup(q)
+    wall = time.perf_counter() - t0
+    launches, lanes, searches = ops.single_store_launches, kern.launches, bank.dispatches - d0
+    print(f"store: single-store GenerativeCache bank={tuple(bank.buf.shape)} "
+          f"live={len(cache.store)} lookups={len(queries)} store_searches={searches} "
+          f"similarity_topk_launches={launches} lanes_kernel_launches={lanes} "
+          f"wall_ms={wall * 1e3:.3f} [{gpu}]")
+    expect = searches if dev.type == "cuda" else 0
+    if bank.L != 1 or launches != expect or lanes != expect or searches < len(queries):
+        raise AssertionError(f"store searches {searches} != single-store launches {launches} "
+                             f"(lanes kernel {lanes})")
+    return launches
+
+
+def main_path(dev, gpu, backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
+    """The port's read path end to end through its user entry points, with
+    ``backend`` (a ``ModelBackend`` over the serving engine) answering the
+    misses. ``cfg``/caps default to the full-width configuration; smaller
+    ones rehearse the same path on the CPU. ``profile`` adds a traced
+    breakdown of one fused read (``profile_read``). Returns the kernels'
+    launches during the traffic, and the encoder and probes for
+    ``store_phase``."""
     import numpy as np
     import torch
 
@@ -183,11 +661,12 @@ def main_path(dev, gpu, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
     )
     from repro_torch.core import read_path
     from repro_torch.data.synthetic import squad_like_qa
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.similarity_topk import kernel as kern
     from repro_torch.kernels.similarity_topk import ops
     from repro_torch.serving.service import CacheService
 
-    t0 = time.perf_counter()
     cfg = CONTRIEVER_MSMARCO if cfg is None else cfg
     dim = cfg.d_model
     on_card = dev.type == "cuda"
@@ -218,59 +697,87 @@ def main_path(dev, gpu, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
         return GenerativeCache(enc, threshold=t_s, t_single=t_single, t_combined=t_comb,
                                capacity=cap, max_sources=TOPK, use_pallas=True, device=dev)
 
-    l1, l2 = level(l1_cap), level(l2_cap)
-    n_fill = int(0.9 * l2_cap) - len(cached)
-    filler = rng.standard_normal((n_fill, dim)).astype(np.float32)
-    l2.insert_batch([f"filler {i}" for i in range(n_fill)],
-                    [f"filler answer {i}" for i in range(n_fill)], vecs=filler)
-    l2.insert_batch([q for q, _ in cached], [a for _, a in cached])  # through the encoder
-    h = HierarchicalCache(l1, l2)
-    client = EnhancedClient(cache=l1, hierarchy=h)
-    client.register_backend(MockLLM("mock-llm", latency_s=0.02))
-    service = CacheService(client, max_batch=8, max_wait_ms=2.0)
-    bank = h._shared_bank
-    if bank is None or tuple(bank.buf.shape) != (2, l2_cap, dim) or not bank.use_pallas:
-        raise AssertionError(f"expected one [2, {l2_cap}, {dim}] kernel-path bank")
-    sync()
-    print(f"fill: encoder params={n_params} bank={tuple(bank.buf.shape)} "
-          f"bank_MB={bank.buf.numel() * 4 / 1e6:.1f} L2_live={len(l2.store)} "
-          f"t_s={t_s:.4f} t_single={t_single:.4f} t_combined={t_comb:.4f} "
-          f"setup_s={time.perf_counter() - t0:.1f}")
+    def replay(llm):
+        """A freshly filled hierarchy serves the traffic as one burst, with
+        ``llm`` answering the misses. Counts run from 0 over the burst."""
+        t0 = time.perf_counter()
+        l1, l2 = level(l1_cap), level(l2_cap)
+        n_fill = int(0.9 * l2_cap) - len(cached)
+        filler = np.random.default_rng(SEED + 7).standard_normal((n_fill, dim)).astype(np.float32)
+        l2.insert_batch([f"filler {i}" for i in range(n_fill)],
+                        [f"filler answer {i}" for i in range(n_fill)], vecs=filler)
+        l2.insert_batch([q for q, _ in cached], [a for _, a in cached])  # through the encoder
+        h = HierarchicalCache(l1, l2)
+        client = EnhancedClient(cache=l1, hierarchy=h)
+        client.register_backend(llm)
+        service = CacheService(client, max_batch=8, max_wait_ms=2.0)
+        bank = h._shared_bank
+        if bank is None or tuple(bank.buf.shape) != (2, l2_cap, dim) or not bank.use_pallas:
+            raise AssertionError(f"expected one [2, {l2_cap}, {dim}] kernel-path bank")
+        sync()
+        print(f"fill: encoder params={n_params} bank={tuple(bank.buf.shape)} "
+              f"bank_MB={bank.buf.numel() * 4 / 1e6:.1f} L2_live={len(l2.store)} "
+              f"t_s={t_s:.4f} t_single={t_single:.4f} t_combined={t_comb:.4f} "
+              f"setup_s={time.perf_counter() - t0:.1f}")
+        # warm the service (first CUDA/cuBLAS calls), then count from zero
+        service.submit(CacheRequest("warm-up question about nothing",
+                                    max_tokens=NEW_TOKENS)).result(timeout=300)
+        engine = getattr(llm, "engine", None)
+        kern.reset_launches()
+        fk.reset_launches()
+        dk.reset_launches()
+        ops.reset_dispatch_count()
+        d0 = bank.dispatches
+        m0 = dict(engine.metrics) if engine is not None else None
+        futs = [service.submit(CacheRequest(q, max_tokens=NEW_TOKENS)) for q, _ in traffic]
+        resps = [f.result(timeout=600) for f in futs]
+        launches = {"similarity_topk_lanes": kern.launches, "flash_attention": fk.launches,
+                    "decode_attention": dk.launches}
+        reads = bank.dispatches - d0
+        dispatches = ops.dispatch_count()
+        service.close()
+        client.close()
+        if h._shared_bank is not bank:
+            raise AssertionError("the hierarchy left its shared bank during the traffic")
+        hits = [r for r in resps if r.from_cache and not r.cache_result.generative]
+        gen = [r for r in resps if r.from_cache and r.cache_result.generative]
+        miss = [r for r in resps if r.status == "generated"]
+        if len(hits) + len(gen) + len(miss) != len(resps):
+            raise AssertionError(f"unexpected statuses: {[r.status for r in resps]}")
+        for r in resps:
+            if not r.text:
+                raise AssertionError(f"empty answer: {r}")
+        if not (hits and gen and miss):
+            raise AssertionError("the traffic must show semantic hits, generative hits and misses")
+        p50 = lambda rs: statistics.median(r.latency_s for r in rs) * 1e3  # noqa: E731
+        # a CPU rehearsal runs the plain versions: no launch is counted there
+        per_launch = 1 if on_card else 0
+        expect = {"similarity_topk_lanes": per_launch * reads, "flash_attention": 0,
+                  "decode_attention": 0}
+        engine_part = ""
+        if engine is not None:
+            prefills = (engine.metrics["prefill_tokens"] - m0["prefill_tokens"]) // PROMPT
+            steps = engine.metrics["decode_steps"] - m0["decode_steps"]
+            n_layers = engine.cfg.num_layers
+            expect.update(flash_attention=per_launch * n_layers * prefills,
+                          decode_attention=per_launch * n_layers * steps)
+            engine_part = f"engine_prefills={prefills} engine_decode_steps={steps} "
+            if prefills == 0 or steps == 0:
+                raise AssertionError("the engine answered no miss")
+        print(f"traffic: llm={llm.name} requests={len(resps)} hits={len(hits)} "
+              f"generative_hits={len(gen)} misses={len(miss)} "
+              f"hit_p50_ms={p50(hits + gen):.3f} miss_p50_ms={p50(miss):.3f} "
+              f"miss_over_hit_p50={p50(miss) / p50(hits + gen):.2f} fused_reads={reads} "
+              f"{engine_part}launches={launches} service={service.stats} [{gpu}]")
+        if launches != expect or reads == 0 or dispatches != reads:
+            raise AssertionError(f"kernel launches {launches} != {expect} (fused reads {reads})")
+        return h, bank, launches
 
-    # warm the service (first CUDA/cuBLAS calls), then count from zero
-    service.submit(CacheRequest("warm-up question about nothing")).result(timeout=120)
-    kern.reset_launches()
-    ops.reset_dispatch_count()
-    d0 = bank.dispatches
-    futs = [service.submit(CacheRequest(q)) for q, _ in traffic]
-    resps = [f.result(timeout=300) for f in futs]
-    launches = kern.launches
-    reads = bank.dispatches - d0
-    if h._shared_bank is not bank:
-        raise AssertionError("the hierarchy left its shared bank during the traffic")
-    hits = [r for r in resps if r.from_cache and not r.cache_result.generative]
-    gen = [r for r in resps if r.from_cache and r.cache_result.generative]
-    miss = [r for r in resps if r.status == "generated"]
-    if len(hits) + len(gen) + len(miss) != len(resps):
-        raise AssertionError(f"unexpected statuses: {[r.status for r in resps]}")
-    for r in resps:
-        if not r.text:
-            raise AssertionError(f"empty answer: {r}")
-    p50 = lambda rs: statistics.median(r.latency_s for r in rs) * 1e3 if rs else float("nan")  # noqa: E731
-    print(f"traffic: requests={len(resps)} hits={len(hits)} generative_hits={len(gen)} "
-          f"misses={len(miss)} hit_p50_ms={p50(hits + gen):.3f} miss_p50_ms={p50(miss):.3f} "
-          f"fused_reads={reads} kernel_launches={launches} "
-          f"service={service.stats} [{gpu}]")
-    if not (hits and gen and miss):
-        raise AssertionError("the traffic must show semantic hits, generative hits and misses")
-    # a CPU rehearsal runs the plain version: no launch is counted there
-    if (launches != (reads if on_card else 0) or reads == 0
-            or ops.dispatch_count() != reads):
-        raise AssertionError(
-            f"kernel launches {launches} != fused reads + lane searches {reads}"
-        )
-    service.close()
-    client.close()
+    # the same burst with PR 11's stand-in LLM (20 ms of sleep) first, so the
+    # engine's effect on hit latency is read within one run; then the main
+    # path proper, the engine answering the misses
+    replay(MockLLM("mock-llm", latency_s=0.02))
+    h, bank, launches = replay(backend)
 
     # one read's decisions recomputed with the plain version on the same bank
     levels = [c for _, c in h._levels()]
@@ -314,7 +821,7 @@ def main_path(dev, gpu, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
         thr_b = np.asarray([[c.effective_threshold(t, None) for c in levels] for t in tb])
         profile_read(lambda: read_path.fused_read(bank, enc, tb, thr_b, specs),
                      lambda: enc.fused_forward()[0](tb), gpu)
-    return launches
+    return launches, enc, [q for q, _ in traffic]
 
 
 def profile_read(read, prepare, gpu, reads=10):
@@ -381,38 +888,59 @@ def main() -> int:
     from repro_torch.kernels.backend import full_fp32
     from repro_torch.kernels.similarity_topk import kernel as kern
     from repro_torch.kernels.similarity_topk import ops
+    from repro_torch.serving.engine import ModelBackend
 
     full_fp32()  # reference comparisons run in full float32 (no TF32)
     dev = torch.device("cuda")
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)}")
-    t0 = time.perf_counter()
-    kern.build()
-    print(f"build: similarity_topk_lanes nvcc sm_90a {time.perf_counter() - t0:.2f} s; "
-          f"tile_rows={kern.tile_rows()} default_block_n={ops.default_block_n()}")
+    build_all()
+    print(f"build: similarity_topk_lanes tile_rows={kern.tile_rows()} "
+          f"default_block_n={ops.default_block_n()}")
     if kern.tile_rows() != ops.default_block_n():
         raise AssertionError("the built kernel's tile differs from its source")
 
-    max_err = kernel_checks(kern, dev)
-    times = kernel_times(kern, dev, gpu)
+    errs = {"similarity_topk_lanes": kernel_checks(kern, dev),
+            "similarity_topk": b2_checks(kern, dev)}
+    attn_errs = attention_checks(dev)
+    errs["flash_attention"], errs["decode_attention"] = attn_errs["flash"], attn_errs["decode"]
+    b1_times = kernel_times(kern, dev, gpu)
+    times = {"similarity_topk_lanes": b1_times[8],  # the service's max_batch of 8
+             "similarity_topk": b2_times(kern, dev, gpu)}
+    attn_times = attention_times(dev, gpu)
+    times["flash_attention"] = attn_times[PROMPT]  # the engine's prefill
+    times["decode_attention"] = attn_times[ENGINE_SEQ]  # the engine's decode step
     torch.cuda.empty_cache()
-    launches = main_path(dev, gpu, profile=args.profile)
-    print(f"kernels: similarity_topk_lanes launches={launches}")
-    main_q = times[8]  # the service's max_batch of 8 is the main path's bucket
-    print(json.dumps({"kernels": [{
-        "name": "similarity_topk_lanes",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/similarity_topk/csrc/similarity_topk_lanes.cu",
-        "replaces": "src/repro/kernels/similarity_topk/kernel.py:84",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_q["ms"],
-        "plain_ms": main_q["plain_ms"],
-        "bound_ms": main_q["bound_ms"],
-        "bound_by": main_q["bound_by"],
-        "library_ms": main_q["library_ms"],
-    }]}))
+    model_check(dev)
+    torch.cuda.empty_cache()
+    engine = engine_phase(dev, gpu)
+    launches, enc, queries = main_path(dev, gpu, ModelBackend(LLM, engine),
+                                       profile=args.profile)
+    torch.cuda.empty_cache()
+    launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
+    print("kernels: " + " ".join(f"{k} launches={v}" for k, v in launches.items()))
+    figures = []
+    for name, source, replaces in (
+        ("similarity_topk_lanes", "similarity_topk/csrc/similarity_topk_lanes.cu",
+         "similarity_topk/kernel.py:84"),
+        ("similarity_topk", "similarity_topk/csrc/similarity_topk_lanes.cu",
+         "similarity_topk/kernel.py:141"),
+        ("decode_attention", "decode_attention/csrc/decode_attention.cu",
+         "decode_attention/kernel.py:78"),
+        ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+         "flash_attention/kernel.py:98"),
+    ):
+        t = times[name]
+        figures.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": figures}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

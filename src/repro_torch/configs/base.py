@@ -1,0 +1,57 @@
+"""Config system of the port: the reference's ``configs/base.py`` cut to the
+fields the port reads.
+
+Every architecture is one frozen ``ModelConfig``; reduced smoke variants
+keep the family mechanisms at tiny widths. Only the dense family runs here,
+so the fields of the other families and of the reference's trainer and
+TPU programs are left out; each comes back with the slice that reads it:
+
+- the MoE/MLA/SSM sub-configs, the hybrid and modality-frontend fields and
+  ``mtp_depth`` with the other families (ROADMAP queue A item 10);
+- ``max_seq_len``, the training knobs (``remat``, ``remat_policy``,
+  ``loss_chunk``, ``optimizer``, ``grad_accum``) and the parameter counts
+  (``total_params``, ``active_params_per_token``) with the training port;
+- the TPU and mesh knobs (``use_pallas``, ``kernel_interpret``,
+  ``topk_block_n``, ``topk_grid_order``, ``attn_chunk``, ``unroll``,
+  ``infer_params_tp_only``, ``opt_pod_sharded``, ``gqa_repeat_kv``,
+  ``kv_cache_dtype``) never: the tensor's device picks the kernel, the CUDA
+  tiles are compile-time constants and attention always runs the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense (the others wait for ROADMAP queue A item 10)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention pattern -------------------------------------------------
+    # cycled over layers; entries: "global" | "local" | "nope_global"
+    attn_pattern: Tuple[str, ...] = ("global",)
+    window_size: int = 0  # sliding window for "local" layers
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    rope_theta_local: float = 0.0  # 0 => same as rope_theta
+    query_scale: float = 0.0  # 0 => 1/sqrt(head_dim)
+    post_norms: bool = False  # gemma-style pre+post block norms
+    act: str = "silu"  # "silu" | "gelu"
+    mlp_gated: bool = True  # gated (SwiGLU/GeGLU) vs plain 2-matrix MLP
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
+
+    # --- numerics -------------------------------------------------------------
+    dtype: str = "bfloat16"

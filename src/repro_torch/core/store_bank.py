@@ -569,19 +569,20 @@ class StoreBank:
         self.host_hops += 2  # query upload + score download around the dispatch
         metric = self.metrics[lane]
         if self.use_pallas and metric in _KERNEL_METRICS:
-            from repro_torch.kernels.similarity_topk import ops as st_ops
+            from repro_torch.kernels.similarity_topk.ops import similarity_topk
 
-            st_ops.record_dispatch()
-            s, i = st_ops._similarity_topk_lanes(
-                self.buf[lane : lane + 1], self.valid[lane : lane + 1], q, k=k,
-                metric=(metric,), prenormalized=self.prenorm[lane],
+            # one lane is one store: the single-store form (B2), [Q, k]
+            s, i = similarity_topk(
+                self.buf[lane], self.valid[lane], q, k=k, metric=metric,
+                prenormalized=self.prenorm[lane],
             )
         else:
             s, i = fused_search_body(
                 self.buf[lane : lane + 1], self.valid[lane : lane + 1], q, k,
                 (metric,), (self.prenorm[lane],),
             )
-        s, i = fetch(s[:, 0], i[:, 0])
+            s, i = s[:, 0], i[:, 0]
+        s, i = fetch(s, i)
         i = i.astype(np.int32)
         s_eff = self.lifecycle_rescore(s, lane, i)
         if s_eff is not None:

@@ -1,0 +1,15 @@
+"""Public wrapper for prefill attention: the reference's ``flash_attention``
+signature without its TPU knobs (``block_q``/``block_k`` tile a sequential
+TPU grid, ``interpret``/``use_kernel`` pick a Pallas backend). The tensor's
+device picks the Hopper kernel (CUDA) or its plain version (CPU) — see
+``kernel.py``."""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import kernel as _kernel
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
+    """q [B,S,H,Dh], k/v [B,S,KH,Dh] -> [B,S,H,Dh] (GQA by head grouping)."""
+    on_cpu = q.device.type == "cpu"
+    run = _kernel.flash_attention_plain if on_cpu else _kernel.flash_attention_cuda
+    return run(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)

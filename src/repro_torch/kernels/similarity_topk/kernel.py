@@ -10,34 +10,24 @@ ordered by (score desc, index asc), so ties break to the lower index.
 The tensor's device decides what runs: a CUDA tensor launches the Hopper
 kernel built from ``csrc/similarity_topk_lanes.cu`` (or raises), a CPU
 tensor takes ``similarity_topk_lanes_plain``. The CUDA source is compiled
-with ``nvcc`` on first use into ``build/`` beside this file and loaded with
-``ctypes``; nothing is built when the module is imported.
+on first use by ``repro_torch.kernels.build``; nothing is built when the
+module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.build import CudaLibrary, require_sm90
 
 NEG = -3.0e38  # invalid-row sentinel, as in the TPU kernel
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "similarity_topk_lanes.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 launches = 0  # CUDA launches of this kernel (one per wrapper call on a CUDA tensor)
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -45,54 +35,20 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the similarity_topk CUDA kernel cannot be built")
-    return path
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.similarity_topk_lanes_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.similarity_topk_lanes_tile_rows.argtypes = []
+    lib.similarity_topk_lanes_tile_rows.restype = ctypes.c_int
 
 
-def build() -> Path:
-    """Compile the CUDA source into a shared library (once per source
-    version; the file name carries the source hash) and return its path."""
-    src = _CSRC.read_bytes()
-    digest = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libsimilarity_topk_{digest}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.similarity_topk_lanes_launch
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.similarity_topk_lanes_tile_rows.argtypes = []
-            lib.similarity_topk_lanes_tile_rows.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+LIB = CudaLibrary(_CSRC, _declare)
 
 
 def tile_rows() -> int:
     """Bank rows per tile of the CUDA kernel (its ``block_n``)."""
-    return int(_load().similarity_topk_lanes_tile_rows())
+    return int(LIB.load().similarity_topk_lanes_tile_rows())
 
 
 def _check(db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor, k: int) -> None:
@@ -129,14 +85,7 @@ def similarity_topk_lanes_cuda(
     a dtype other than f32/bool, non-contiguous or misaligned tensors."""
     global launches
     _check(db, valid, q, k)
-    if db.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {db.device}")
-    cap = torch.cuda.get_device_capability(db.device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"similarity_topk kernel is built for sm_90a; "
-            f"{torch.cuda.get_device_name(db.device)} is sm_{cap[0]}{cap[1]}"
-        )
+    require_sm90(db, "similarity_topk")
     for name, t in (("db", db), ("valid", valid), ("q", q)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -144,7 +93,7 @@ def similarity_topk_lanes_cuda(
     Q = q.shape[0]
     if D % 4 or db.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("db and q need D % 4 == 0 and 16-byte aligned storage")
-    lib = _load()
+    lib = LIB.load()
     tn = int(lib.similarity_topk_lanes_tile_rows())
     if k > tn:
         raise ValueError(f"k={k} exceeds the kernel's tile of {tn} rows")

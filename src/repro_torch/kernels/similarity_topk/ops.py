@@ -1,4 +1,5 @@
-"""Public wrapper for the fused multi-lane similarity + top-k lookup.
+"""Public wrappers for the fused multi-lane similarity + top-k lookup and
+its single-store form.
 
 ``similarity_topk_lanes`` scores a whole StoreBank, db [L, N, D], against
 q [Q, D] and returns (scores [Q, L, k], lane-local idx [Q, L, k]): every
@@ -14,7 +15,8 @@ The kernel masks the ragged N edge itself, so nothing is padded here.
 
 Each call counts a host-level dispatch (``dispatch_count`` /
 ``reset_dispatch_count``); the CUDA launches are counted separately by
-``kernel.launches``.
+``kernel.launches``, and those made through the single-store form by
+``single_store_launches`` as well.
 """
 from __future__ import annotations
 
@@ -25,13 +27,14 @@ import torch
 from repro_torch.kernels.similarity_topk import kernel as _kernel
 
 _dispatches = 0  # host-level wrapper calls (fused reads + lane searches)
+single_store_launches = 0  # lanes-kernel launches made by ``similarity_topk`` (B2)
 
 TopK = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def record_dispatch(n: int = 1) -> None:
-    """Count a dispatch issued outside ``similarity_topk_lanes`` (the read
-    path and ``StoreBank.search_lane`` call the semantics wrapper below)."""
+    """Count a dispatch issued outside the public wrappers (the read path
+    calls the semantics wrapper below)."""
     global _dispatches
     _dispatches += n
 
@@ -43,6 +46,11 @@ def dispatch_count() -> int:
 def reset_dispatch_count() -> None:
     global _dispatches
     _dispatches = 0
+
+
+def reset_single_store_launches() -> None:
+    global single_store_launches
+    single_store_launches = 0
 
 
 def default_block_n() -> int:
@@ -112,3 +120,20 @@ def similarity_topk_lanes(db, valid, q, *, k: int,
     metrics = (metric,) if isinstance(metric, str) else tuple(metric)
     return _similarity_topk_lanes(db, valid, q, k=k, metric=metrics,
                                   prenormalized=prenormalized)
+
+
+def similarity_topk(db, valid, q, *, k: int, metric: str = "cosine",
+                    prenormalized: bool = False):
+    """Single-store lookup (the reference's ``similarity_topk``, kernel B2):
+    db [N, D], valid [N] bool, q [Q, D] -> (scores [Q, k], idx [Q, k]),
+    invalid rows at -inf. The store is one lane of the lanes kernel: a CUDA
+    tensor launches it with L = 1. ``prenormalized=True`` (unit cosine rows,
+    the StoreBank insert invariant) skips normalizing ``db``; the reference
+    has no such argument. ``StoreBank.search_lane`` reads a store this way."""
+    global single_store_launches
+    record_dispatch()
+    s, i = _similarity_topk_lanes(db.to(torch.float32)[None], valid[None], q, k=k,
+                                  metric=(metric,), prenormalized=prenormalized)
+    if db.is_cuda:
+        single_store_launches += 1
+    return s[:, 0], i[:, 0]

@@ -1,6 +1,8 @@
-"""CUDA legs of the port's tests: the Hopper similarity_topk kernel against
-its plain version on the card, and the read path through the kernel against
-the same read through the plain search.
+"""CUDA legs of the port's tests: each Hopper kernel against its plain
+version on the card (similarity_topk lanes B1 and its single-store form B2,
+decode attention B3, flash attention B4), the wrappers' refusals, the read
+path through the kernel against the same read through the plain search,
+and the serving engine on the card against its CPU run.
 
 They import torch and the port only, never JAX, so they also run where
 JAX is absent; ``tests/conftest.py`` imports JAX, hence ``--noconftest``:
@@ -9,13 +11,16 @@ JAX is absent; ``tests/conftest.py`` imports JAX, hence ``--noconftest``:
 
 Without a CUDA device every test here skips. Scores agree within
 atol = rtol = 2e-5 (float32 sums in another order); indices are equal
-wherever the score belongs to a valid row.
+wherever the score belongs to a valid row. Attention outputs agree within
+2e-5 in float32 and 2e-2 in bfloat16 (the reference kernel tests').
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import backend
+from repro_torch.kernels.decode_attention import kernel as dk
+from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.similarity_topk import kernel as tk
 from repro_torch.kernels.similarity_topk import ops as tops
 
@@ -148,3 +153,150 @@ def test_read_path_through_kernel_matches_plain_search(dev):
     assert (dk.winner == len(caps)).any() and (dk.winner < len(caps)).any()
     for a, b in zip(hk._shared_bank.counters_host(), hp._shared_bank.counters_host()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_single_store_form_launches_the_lanes_kernel_at_one_lane(dev):
+    db, valid, q = _inputs(1, 700, 128, 3, 9, dev)
+    before = (tk.launches, tops.single_store_launches)
+    s, i = tops.similarity_topk(db[0], valid[0], q, k=5, metric="dot")
+    assert (tk.launches, tops.single_store_launches) == (before[0] + 1, before[1] + 1)
+    s2, i2 = tops._similarity_topk_lanes(db, valid, q, k=5, metric=("dot",),
+                                         prenormalized=False,
+                                         topk=tk.similarity_topk_lanes_plain)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(s.cpu().numpy(), s2[:, 0].cpu().numpy(), **TOL)
+    np.testing.assert_array_equal(i.cpu().numpy(), i2[:, 0].cpu().numpy())
+
+
+def test_store_search_launches_the_single_store_form(dev):
+    """``InMemoryVectorStore.search`` on the kernel path: one B2 launch per
+    search, the same candidates as the plain search on the card."""
+    from repro_torch.core.vector_store import InMemoryVectorStore
+
+    rng = np.random.default_rng(10)
+    rows = rng.standard_normal((600, 128)).astype(np.float32)
+    qs = rng.standard_normal((3, 128)).astype(np.float32)
+    stores = [InMemoryVectorStore(128, capacity=1024, use_pallas=p, device=dev)
+              for p in (True, False)]
+    for store in stores:
+        store.add_batch(rows, [f"q{j}" for j in range(600)], [f"a{j}" for j in range(600)])
+    before = tops.single_store_launches
+    got = stores[0].search_batch(qs, k=5)
+    assert tops.single_store_launches == before + 1
+    want = stores[1].search_batch(qs, k=5)
+    for g, w in zip(got, want):
+        assert [e.query for _, e in g] == [e.query for _, e in w]
+        np.testing.assert_allclose([s for s, _ in g], [s for s, _ in w], **TOL)
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_CASES = [
+    # B, S, H, KH, Dh, window, softcap
+    (1, 32, 16, 16, 64, 0, 0.0),  # the engine's prefill
+    (1, 100, 8, 2, 64, 0, 0.0),  # ragged S, GQA
+    (2, 512, 4, 1, 64, 128, 50.0),  # MQA + window + softcap
+    (1, 128, 4, 4, 128, 0, 30.0),
+    (2, 77, 4, 2, 16, 7, 0.0),
+]
+DECODE_CASES = [
+    # B, S, H, KH, Dh, window, softcap, lengths
+    (4, 256, 16, 16, 64, 0, 0.0, (1, 17, 256, 40)),  # the engine's decode
+    (2, 512, 8, 2, 64, 0, 0.0, (256, 170)),
+    (2, 512, 4, 1, 64, 128, 50.0, (1, 512)),
+    (2, 300, 4, 4, 128, 0, 0.0, (0, 299)),
+]
+
+
+def _randn(shape, dt, dev, seed):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(dev, dt)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(case, dt, dev):
+    B, S, H, KH, Dh, window, cap = case
+    q = _randn((B, S, H, Dh), dt, dev, 0)
+    k, v = _randn((B, S, KH, Dh), dt, dev, 1), _randn((B, S, KH, Dh), dt, dev, 2)
+    before = fk.launches
+    got = fk.flash_attention_cuda(q, k, v, window=window, softcap=cap)
+    want = fk.flash_attention_plain(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1 and got.dtype == dt
+    tol = ATTN_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(case, dt, dev):
+    B, S, H, KH, Dh, window, cap, lens = case
+    q = _randn((B, H, Dh), dt, dev, 3)
+    k, v = _randn((B, S, KH, Dh), dt, dev, 4), _randn((B, S, KH, Dh), dt, dev, 5)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = dk.launches
+    got = dk.decode_attention_cuda(q, k, v, lengths, window=window, softcap=cap)
+    want = dk.decode_attention_plain(q, k, v, lengths, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 1 and got.dtype == dt
+    tol = ATTN_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = _randn((1, 16, 4, 64), torch.float32, dev, 6)
+    k = _randn((1, 16, 2, 64), torch.float32, dev, 7)
+    lengths = torch.tensor([5], dtype=torch.int32, device=dev)
+    f0, d0 = fk.launches, dk.launches
+    with pytest.raises(TypeError):
+        fk.flash_attention_cuda(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError):
+        fk.flash_attention_cuda(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="devices differ"):
+        fk.flash_attention_cuda(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fk.flash_attention_cuda(q.cpu(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                k[..., :48].contiguous())
+    with pytest.raises(TypeError, match="int32"):
+        dk.decode_attention_cuda(q[:, 0], k, k, lengths.long())
+    with pytest.raises(TypeError):
+        dk.decode_attention_cuda(q[:, 0].bfloat16(), k, k, lengths)
+    with pytest.raises(ValueError, match="devices differ"):
+        dk.decode_attention_cuda(q[:, 0], k, k, lengths.cpu())
+    assert (fk.launches, dk.launches) == (f0, d0)  # a refused call launches nothing
+
+
+def test_engine_on_the_card_matches_its_cpu_run(dev):
+    """The smoke model in float32 through the engine on the card (kernels)
+    and on the CPU (plain versions): the same greedy tokens, and one flash
+    launch per layer and prefill, one decode launch per layer and step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b", smoke=True), dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 17, 8, 11, 5)]
+    outs = {}
+    for d in ("cpu", "cuda"):
+        p = _tree_to(params, dev) if d == "cuda" else params
+        eng = ServingEngine(cfg, p, max_batch=2, max_seq=64, device=d)
+        f0, d0 = fk.launches, dk.launches
+        outs[d] = eng.generate(prompts, max_new_tokens=6)
+        if d == "cuda":
+            assert fk.launches - f0 == cfg.num_layers * len(prompts)
+            assert dk.launches - d0 == cfg.num_layers * eng.metrics["decode_steps"]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}

@@ -60,11 +60,14 @@ def test_serving_stack_import_leaves_jax_out():
 
 def test_every_module_imports_without_a_build():
     import repro_torch
-    from repro_torch.kernels.similarity_topk import kernel
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.similarity_topk import kernel as topk
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     assert "repro_torch.serving.service" in names and len(names) > 25
     for name in names:
         importlib.import_module(name)
     if not torch.cuda.is_available():
-        assert kernel._lib is None  # nothing was compiled or loaded
+        for kernel in (topk, flash, decode):
+            assert not kernel.LIB.loaded  # nothing was compiled or loaded

@@ -162,3 +162,64 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             backend.resolve_device(None)
     assert backend.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+def test_single_store_similarity_topk_matches_pallas_interpret(shape, metric):
+    """B2: ``ops.similarity_topk``, the single-store form (the lanes kernel
+    at L = 1), against the reference's ``similarity_topk`` (Pallas
+    ``similarity_topk_blocks`` in interpret mode), as
+    ``tests/test_kernels_similarity.py`` calls it."""
+    from repro.kernels.similarity_topk.ops import similarity_topk as jax_single
+
+    N, D, Q, k = shape
+    db, valid, q = _inputs(1, N, D, Q, seed=N + 7)
+    db, valid = db[0], valid[0]
+    before = tops.dispatch_count()
+    s, i = tops.similarity_topk(torch.from_numpy(db), torch.from_numpy(valid),
+                                torch.from_numpy(q), k=k, metric=metric)
+    assert tops.dispatch_count() == before + 1 and s.shape == (Q, k)
+    s2, i2 = jax_single(jnp.asarray(db), jnp.asarray(valid), jnp.asarray(q), k=k, metric=metric)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s2), **TOL)
+    live = np.isfinite(np.asarray(s2))
+    np.testing.assert_array_equal(i.numpy()[live], np.asarray(i2)[live])
+
+
+def test_single_store_bfloat16_and_all_invalid():
+    from repro.kernels.similarity_topk.ops import similarity_topk as jax_single
+
+    db, valid, q = _inputs(1, 300, 64, 2, seed=3)
+    s, _ = tops.similarity_topk(torch.from_numpy(db[0]).bfloat16(), torch.from_numpy(valid[0]),
+                                torch.from_numpy(q), k=4)
+    s2, _ = jax_single(jnp.asarray(db[0], jnp.bfloat16), jnp.asarray(valid[0]),
+                       jnp.asarray(q), k=4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s2), **TOL)
+    s, _ = tops.similarity_topk(torch.ones(256, 64), torch.zeros(256, dtype=torch.bool),
+                                torch.ones(2, 64), k=4)
+    assert torch.isneginf(s).all()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+def test_store_search_reads_through_the_single_store_form(metric):
+    """``InMemoryVectorStore.search`` on the kernel path is one call of B2's
+    wrapper over the store's lane (unit cosine rows, so ``prenormalized``),
+    and finds what the plain search finds; a CPU store launches nothing."""
+    from repro_torch.core.vector_store import InMemoryVectorStore
+
+    db, _, q = _inputs(1, 200, 32, 3, seed=21)
+    stores = [InMemoryVectorStore(32, capacity=256, metric=metric, use_pallas=p, device="cpu")
+              for p in (True, False)]
+    for store in stores:
+        store.add_batch(db[0], [f"q{j}" for j in range(200)], [f"a{j}" for j in range(200)])
+    tops.reset_single_store_launches()
+    before = tops.dispatch_count()
+    got = stores[0].search_batch(q, k=5)
+    assert tops.dispatch_count() == before + 1 and tops.single_store_launches == 0
+    want = stores[1].search_batch(q, k=5)
+    for g, w in zip(got, want):
+        assert [e.query for _, e in g] == [e.query for _, e in w]
+        np.testing.assert_allclose([s for s, _ in g], [s for s, _ in w], **TOL)
+    s, _ = tops.similarity_topk(torch.from_numpy(db[0]), torch.ones(200, dtype=torch.bool),
+                                torch.from_numpy(q), k=5, metric=metric)
+    np.testing.assert_allclose(s.numpy(), [[s for s, _ in g] for g in got], **TOL)
