@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card (an H100): the cache read path
-and, behind it, the miss path through the LLM serving engine.
+and, behind it, the miss path through the LLM serving engines (a dense and
+an SSM model).
 
     python3 chip_smoke.py [--profile]
 
-It builds the port's three CUDA libraries from the sources in this checkout
+It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
-version on the card, checks the full-width model against its CPU run, and
-then serves a burst of requests through the port's real entry points:
+version on the card, checks the full-width models against their CPU runs,
+and then serves a burst of requests through the port's real entry points:
 
     CacheService -> EnhancedClient
       -> HierarchicalCache(L1 GenerativeCache 16384, L2 GenerativeCache 131072)
@@ -18,18 +19,24 @@ then serves a burst of requests through the port's real entry points:
          bfloat16, random init from a seed; max_batch 4, max_seq 256)
          prefill through the flash_attention kernel (B4), every decode step
          through the decode_attention kernel (B3)
+      -> or: ModelBackend -> ServingEngine(mamba2-1.3b, 48 x 2048, d_inner
+         4096, 64 SSM heads, bfloat16, random init from a seed; max_batch 4,
+         max_seq 256), every prefill through the ssd_scan kernel (B5), decode
+         the recurrent update in plain torch
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 ``build:`` (nvcc seconds per library), ``check:`` per kernel-vs-plain case
-(B1, B2 = B1 at L = 1, B3, B4), ``time:`` lines (kernel / plain / library
-device times from a profiler trace, the kernel's host rate, and the bound,
-at the main-path shapes and one longer shape each, with the card and its
-power limit), ``model:`` (full-width float32 model on the card against the
-CPU), ``engine:`` (full-width bfloat16 engine: prefill and decode-step p50,
-tokens/s, attention launches per prefill and per decode step) and
-``profile: decode`` (one decode step's device time by kernel, kernels per
-step and busy share), ``fill:``, ``traffic:`` (hits, generative hits,
-misses served by the engine, latency p50s, launch counts), ``decide:`` (one
+(B1, B2 = B1 at L = 1, B3, B4, B5), ``time:`` lines (kernel / plain /
+library device times from a profiler trace, or from CUDA events after a
+``timer:`` line where the traces came back empty, the kernel's host rate, and the
+bound, at the main-path shapes and one longer shape each, with the card and
+its power limit), ``model:`` per model (full-width float32 model on the card
+against the CPU), per engine ``engine:`` lines (full-width bfloat16 engine:
+the kernels' launches per prefill and per decode step, counted before any
+timing loop, then prefill and decode-step p50 and tokens/s) and ``profile:
+decode`` (one decode step's device time by kernel, kernels per step and busy
+share), ``fill:``, ``traffic:`` per replay (hits, generative hits, misses
+served by the engine, latency p50s and the 5x gate, launch counts), ``decide:`` (one
 read's decisions recomputed with the plain version), ``read:`` (p50 of one
 fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
 lookups, each store search one call of ``ops.similarity_topk``),
@@ -56,9 +63,11 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (no TF32)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 TOL = 2e-5  # the reference kernel tests' tolerance (float32 sums in another order)
 BF16_TOL = 2e-2  # the same tests' bfloat16 tolerance
-MODEL_TOL = 1e-3  # float32 logits after 24 layers summed in another order
+MODEL_TOL = 1e-3  # float32 logits after 24 or 48 layers summed in another order
+SSD_TOL = 1e-4  # the reference SSD kernel tests' float32 tolerance
 L1_CAP, L2_CAP, DIM, TOPK = 16384, 131072, 768, 4
 LLM = "qwen1.5-0.5b"
+SSM_LLM = "mamba2-1.3b"
 ENGINE_BATCH, ENGINE_SEQ, NEW_TOKENS = 4, 256, 16
 PROMPT = 32  # ModelBackend pads every prompt to 32 tokens
 
@@ -87,25 +96,53 @@ def host_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, traces=3):
     """Device time of one call of ``fn``: the summed durations of the kernels
     (copies and memsets included) it runs on the card, from a torch.profiler
-    trace of ``iters`` calls. Raises if the trace holds no device time."""
+    trace of ``iters`` calls. Now and then CUPTI hands back a trace with no
+    device activity in it; such a trace is taken again, and after ``traces``
+    empty ones the time comes from ``queued_event_ms`` instead, with a
+    ``timer:`` line saying so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler trace holds no device time")
-    return total_us / 1e3 / iters
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    ms = queued_event_ms(fn, iters)
+    print(f"timer: {traces} profiler traces held no device time; CUDA events "
+          f"behind a spin kernel read {ms:.4f} ms")
+    return ms
+
+
+def queued_event_ms(fn, iters=20):
+    """Device time of one call of ``fn`` from CUDA events around ``iters``
+    calls that the host queued while a spin kernel held the stream, so the
+    events read the device running them back to back, not the host's rate."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * 2e9))  # ~2 GHz SM clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check_case(name, db, valid, q, k, kern, ops_kw=None):
@@ -218,18 +255,20 @@ def build_all():
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.similarity_topk import kernel as tk
+    from repro_torch.kernels.ssd_scan import kernel as sk
 
     def timed(lib):
         t0 = time.perf_counter()
         lib.build()
         return lib.src.name, time.perf_counter() - t0
 
+    libs = [tk.LIB, fk.LIB, dk.LIB, sk.LIB]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        done = list(ex.map(timed, [tk.LIB, fk.LIB, dk.LIB]))
+    with ThreadPoolExecutor(len(libs)) as ex:
+        done = list(ex.map(timed, libs))
     for name, sec in done:
         print(f"build: {name} nvcc sm_90a {sec:.2f} s")
-    print(f"build: all three libraries {time.perf_counter() - t0:.2f} s wall")
+    print(f"build: all {len(libs)} libraries {time.perf_counter() - t0:.2f} s wall")
 
 
 def close_check(name, got, want, tol):
@@ -390,6 +429,96 @@ def attention_times(dev, gpu):
     return out
 
 
+SSD_CASES = [
+    # B, S, H, G, P, N, chunk
+    (1, PROMPT, 64, 1, 64, 128, 256),  # the engine's prefill (mamba2-1.3b, ngroups 1)
+    (1, 300, 64, 1, 64, 128, 256),  # ragged: two chunks, the second partial
+    (1, 2048, 64, 1, 64, 128, 256),  # the longer shape: 8 chunks
+    (2, 100, 64, 64, 64, 128, 64),  # B/C per head (the reference's repeated layout)
+    (2, 77, 16, 4, 32, 16, 32),  # groups of 4 heads, ragged, the smoke model's widths
+]
+
+
+def ssd_inputs(B, S, H, G, P, N, dtype, g):
+    """x, Bm, Cm (``dtype``), dt (post-softplus), A (< 0), D (float32)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = g.device
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    Bm, Cm = ((0.5 * torch.randn((B, S, G, N), generator=g, device=dev)).to(dtype)
+              for _ in "BC")
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev) - 1.0)
+    A = -torch.exp(0.3 * torch.randn((H,), generator=g, device=dev))
+    D = torch.randn((H,), generator=g, device=dev)
+    return x, Bm, Cm, dt, A, D
+
+
+def ssd_checks(dev):
+    """B5 against its plain version on the card: y within 1e-4 in float32
+    and ``BF16_TOL`` in bfloat16, the float32 state within 1e-4. Returns the
+    worst y error."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = 0.0
+    for dt_, tol in ((torch.float32, SSD_TOL), (torch.bfloat16, BF16_TOL)):
+        tag = "f32" if dt_ == torch.float32 else "bf16"
+        for B, S, H, G, P, N, chunk in SSD_CASES:
+            args = ssd_inputs(B, S, H, G, P, N, dt_, g)
+            y1, st1 = sk.ssd_scan_cuda(*args, chunk=chunk)
+            y2, st2 = sk.ssd_scan_plain(*args, chunk=chunk)
+            name = f"B5 ssd_scan {tag} B={B} S={S} H={H} G={G} P={P} N={N} chunk={chunk}"
+            worst = max(worst, close_check(name + " y", y1, y2, tol))
+            close_check(name + " state", st1, st2, SSD_TOL)
+    return worst
+
+
+def ssd_flops(S, H, G, P, N, L):
+    """FLOP of one scan at batch 1, counting the causal half of each chunk's
+    [L, L] products (the pairs s <= l) as the attention bounds do. C B^T
+    depends only on the B/C group, so it counts once per group (over N);
+    each head adds the inter-chunk term and the state update (2 L P N each),
+    its scores times x (the causal pairs, over P) and the skip term."""
+    total = 0
+    for c0 in range(0, S, L):
+        lc = min(L, S - c0)
+        total += G * N * lc * (lc + 1) + H * (4 * lc * P * N + P * lc * (lc + 1) + 2 * lc * P)
+    return total
+
+
+def ssd_times(dev, gpu):
+    """B5 in bfloat16 at the engine's prefill (S = 32) and at S = 2048, at
+    mamba2-1.3b's widths with its B/C groups unrepeated: kernel and plain
+    device times, the kernel's host rate and the bound. No single PyTorch
+    call computes the scan: the library time is none."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    H, G, P, N, chunk = 64, 1, 64, 128, 256
+    for S in (PROMPT, 2048):
+        args = x, Bm, Cm, dt, A, D = ssd_inputs(1, S, H, G, P, N, torch.bfloat16, g)
+        k_ms = device_ms(lambda: sk.ssd_scan_cuda(*args, chunk=chunk))
+        h_ms = host_ms(lambda: sk.ssd_scan_cuda(*args, chunk=chunk))
+        p_ms = device_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk), iters=5)
+        nbytes = (2 * x.numel() * 2 + (Bm.numel() + Cm.numel()) * 2 + dt.numel() * 4
+                  + 2 * H * 4 + H * P * N * 4)  # x in, y out, B/C, dt, A/D, state out
+        flops = ssd_flops(S, H, G, P, N, min(chunk, S))
+        bound, by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"time: ssd_scan bf16 B=1 S={S} H={H} G={G} P={P} N={N} chunk={chunk} "
+              f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms=none bound_ms={bound:.4f} ({by}) MB={nbytes / 1e6:.2f} "
+              f"GFLOP={flops / 1e9:.3f} "
+              f"share_of_bound={bound / k_ms:.3f} [{gpu}]")
+    return out
+
+
 def b2_times(kern, dev, gpu, Q=1):
     """B2 at its path's shape: one [131072, 768] float32 store of unit rows
     searched for one query, as ``InMemoryVectorStore.search`` does."""
@@ -421,12 +550,13 @@ def b2_times(kern, dev, gpu, Q=1):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
 
 
-def model_check(dev, steps=4):
-    """The full-width model in float32 with one set of weights, on the card
-    (kernels, TF32 off) and on the CPU (plain versions): one 32-token
-    prefill and ``steps`` teacher-forced decode steps. Raises if a logit
-    differs by more than ``MODEL_TOL``, or if greedy tokens differ where the
-    CPU logits' top-2 gap exceeds 2e-3."""
+def model_check(dev, name=LLM, steps=4):
+    """The full-width model ``name`` in float32 with one set of weights, on
+    the card (kernels, TF32 off) and on the CPU (plain versions): one
+    32-token prefill and ``steps`` teacher-forced decode steps. Raises if a
+    logit differs by more than ``MODEL_TOL``, or if greedy tokens differ
+    where the CPU logits' top-2 gap exceeds 2e-3. The weights are drawn on
+    the card (fast at full width) and copied to the CPU."""
     import dataclasses
 
     import numpy as np
@@ -436,10 +566,10 @@ def model_check(dev, steps=4):
     from repro_torch.models import transformer as T
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LLM), dtype="float32")
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
     cpu = torch.device("cpu")
-    params_cpu = T.init_params(cfg, SEED, device=cpu)
-    params_dev = _tree_to(params_cpu, dev)
+    params_dev = T.init_params(cfg, SEED, device=dev)
+    params_cpu = _tree_to(params_dev, cpu)
     rng = np.random.default_rng(SEED)
     toks = rng.integers(0, cfg.vocab_size, (1, PROMPT + steps))
     worst, flips, runs = 0.0, 0, []
@@ -459,7 +589,7 @@ def model_check(dev, steps=4):
         decided = (top2[:, 0] - top2[:, 1]) > 2e-3
         flips += int((decided & (got.argmax(-1) != want.argmax(-1))).sum())
     finite = all(bool(torch.isfinite(x).all()) for x in runs[0])
-    print(f"model: {LLM} float32 layers={cfg.num_layers} d_model={cfg.d_model} "
+    print(f"model: {name} float32 layers={cfg.num_layers} d_model={cfg.d_model} "
           f"params={sum(x.numel() for x in _leaves(params_cpu))} prefill S={PROMPT} + "
           f"{steps} decode steps, card (kernels) vs CPU (plain) max_abs_logit_err={worst:.3e} "
           f"tol={MODEL_TOL} greedy_flips={flips} finite={finite} "
@@ -478,21 +608,56 @@ def _tree_to(tree, dev):
     return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
-def engine_phase(dev, gpu):
-    """ServingEngine at full width in bfloat16 on the card: prompts of mixed
-    lengths through ``generate``; prefill and decode-step p50, tokens/s,
-    and the attention launches against the engine's own counts. Returns the
-    engine, warm, for the traffic."""
+def path_kernels(cfg):
+    """The port's kernels a model's engine launches, each with the engine
+    call it launches in (once per layer there)."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": "prefill"}
+    return {"flash_attention": "prefill", "decode_attention": "decode_step"}
+
+
+def engine_kernels():
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    return {"flash_attention": fk, "decode_attention": dk, "ssd_scan": sk}
+
+
+def engine_launches():
+    return {name: k.launches for name, k in engine_kernels().items()}
+
+
+def reset_engine_launches():
+    for k in engine_kernels().values():
+        k.reset_launches()
+
+
+def expected_launches(cfg, prefills, steps, on_card=True):
+    """What each engine kernel must count for ``prefills`` prefills and
+    ``steps`` decode steps of ``cfg``'s engine (0 for another family's
+    kernels, and for all on the CPU, which runs the plain versions)."""
+    want = dict.fromkeys(engine_kernels(), 0)
+    if on_card:
+        for name, call in path_kernels(cfg).items():
+            want[name] = cfg.num_layers * (prefills if call == "prefill" else steps)
+    return want
+
+
+def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
+    """ServingEngine for ``name`` at full width in bfloat16 on the card:
+    prompts of ``lengths`` through ``generate``; the kernels' launches
+    against the engine's own counts (printed before any timing loop), then
+    prefill and decode-step p50 and tokens/s, and where one decode step's
+    time goes. Returns the engine, warm, for the traffic."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config(LLM)
+    cfg = get_config(name)
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ, seed=SEED,
                            device=dev)
@@ -500,19 +665,21 @@ def engine_phase(dev, gpu):
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     engine.generate([rng.integers(0, cfg.vocab_size, 8)], max_new_tokens=2)  # warm-up
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 32, 12, 27, 9, 20)]
-    fk.reset_launches()
-    dk.reset_launches()
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    reset_engine_launches()
     m0 = dict(engine.metrics)
     t1 = time.perf_counter()
     outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
     wall = time.perf_counter() - t1
     steps = engine.metrics["decode_steps"] - m0["decode_steps"]
-    flash_n, decode_n = fk.launches, dk.launches  # read before the timing loops below
-    per_call = cfg.num_layers if dev.type == "cuda" else 0  # the CPU runs the plain versions
-    if flash_n != per_call * len(prompts) or decode_n != per_call * steps:
-        raise AssertionError(f"attention launches flash={flash_n} decode={decode_n} "
-                             f"for {len(prompts)} prefills and {steps} decode steps")
+    got = engine_launches()  # read before the timing loops below
+    want = expected_launches(cfg, len(prompts), steps, on_card=dev.type == "cuda")
+    per = {"prefill": len(prompts), "decode_step": steps}
+    print(f"engine: {name} launches={got} for prefills={len(prompts)} decode_steps={steps}: "
+          + " ".join(f"{k}_per_{call}={got[k] / max(per[call], 1):g}"
+                     for k, call in path_kernels(cfg).items()) + f" [{gpu}]")
+    if got != want:
+        raise AssertionError(f"engine kernel launches {got} != {want}")
     if [len(o) for o in outs] != [NEW_TOKENS] * len(prompts):
         raise AssertionError(f"generated lengths {[len(o) for o in outs]}")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
@@ -542,20 +709,18 @@ def engine_phase(dev, gpu):
         return statistics.median(ts[3:])
 
     pre_ms, dec_ms = p50_ms(prefill), p50_ms(decode)
-    print(f"engine: {LLM} bfloat16 params={sum(x.numel() for x in _leaves(engine.params))} "
+    print(f"engine: {name} bfloat16 params={sum(x.numel() for x in _leaves(engine.params))} "
           f"max_batch={ENGINE_BATCH} max_seq={ENGINE_SEQ} setup_s={setup_s:.1f} "
           f"prompts={[len(p) for p in prompts]} new_tokens={NEW_TOKENS} "
           f"decode_steps={steps} wall_s={wall:.3f} "
           f"tokens_per_s={len(prompts) * NEW_TOKENS / wall:.1f} "
           f"prefill_S{PROMPT}_p50_ms={pre_ms:.3f} decode_step_B{ENGINE_BATCH}_p50_ms={dec_ms:.3f} "
-          f"prefills={len(prompts)} flash_launches={flash_n} "
-          f"flash_launches_per_prefill={flash_n / len(prompts):g} decode_launches={decode_n} "
-          f"decode_launches_per_step={decode_n / steps:g} [{gpu}]")
-    profile_decode(decode, gpu)
+          f"[{gpu}]")
+    profile_decode(decode, gpu, name)
     return engine
 
 
-def profile_decode(decode, gpu, steps=5):
+def profile_decode(decode, gpu, name, steps=5):
     """Where one decode step's time goes: device time per kernel from a
     torch.profiler trace, launches per step, and the device's busy share."""
     import torch
@@ -577,23 +742,26 @@ def profile_decode(decode, gpu, steps=5):
     device_ms = sum(ms for ms, _ in by_name.values())
     launches = sum(n for _, n in by_name.values()) / steps
     if device_ms == 0.0:
-        print(f"profile: decode step: the trace holds no device time; busy share not "
+        print(f"profile: decode step {name}: the trace holds no device time; busy share not "
               f"measured [{gpu}]")
         return
-    groups = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, (ms, _) in by_name.items():
-        if "decode_fwd" in name:
+    groups = {"decode_attention": 0.0, "matmul": 0.0, "elementwise": 0.0, "other": 0.0}
+    for kname, (ms, _) in by_name.items():
+        low = kname.lower()
+        if "decode_fwd" in kname:
             groups["decode_attention"] += ms
-        elif any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
+        elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
             groups["matmul"] += ms
+        elif "elementwise" in low or "vectorized" in low:
+            groups["elementwise"] += ms
         else:
             groups["other"] += ms
-    print(f"profile: decode step B={ENGINE_BATCH} wall_ms={wall_ms:.3f} "
+    print(f"profile: decode step {name} B={ENGINE_BATCH} wall_ms={wall_ms:.3f} "
           f"device_ms={device_ms:.3f} busy_share={device_ms / wall_ms:.3f} "
           f"kernels_per_step={launches:.1f} "
           + " ".join(f"{g}_ms={v:.3f}" for g, v in groups.items()) + f" [{gpu}]")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"profile:   {ms:.4f} ms/step  x{n / steps:g}  {name[:100]}")
+    for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"profile:   {ms:.4f} ms/step  x{n / steps:g}  {kname[:100]}")
 
 
 def store_phase(enc, dev, gpu, queries, cap=L2_CAP):
@@ -639,13 +807,16 @@ def store_phase(enc, dev, gpu, queries, cap=L2_CAP):
     return launches
 
 
-def main_path(dev, gpu, backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
+def main_path(dev, gpu, backend, ssm_backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP,
+              profile=False):
     """The port's read path end to end through its user entry points, with
-    ``backend`` (a ``ModelBackend`` over the serving engine) answering the
-    misses. ``cfg``/caps default to the full-width configuration; smaller
+    ``backend`` (a ``ModelBackend`` over the dense serving engine) answering
+    the misses, then the same burst with ``ssm_backend`` (over the SSM
+    engine). ``cfg``/caps default to the full-width configuration; smaller
     ones rehearse the same path on the CPU. ``profile`` adds a traced
     breakdown of one fused read (``profile_read``). Returns the kernels'
-    launches during the traffic, and the encoder and probes for
+    launches during the traffic (B1, B3 and B4 from the dense engine's
+    replay, B5 from the SSM engine's), and the encoder and probes for
     ``store_phase``."""
     import numpy as np
     import torch
@@ -661,8 +832,6 @@ def main_path(dev, gpu, backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile
     )
     from repro_torch.core import read_path
     from repro_torch.data.synthetic import squad_like_qa
-    from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.similarity_topk import kernel as kern
     from repro_torch.kernels.similarity_topk import ops
     from repro_torch.serving.service import CacheService
@@ -724,15 +893,13 @@ def main_path(dev, gpu, backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile
                                     max_tokens=NEW_TOKENS)).result(timeout=300)
         engine = getattr(llm, "engine", None)
         kern.reset_launches()
-        fk.reset_launches()
-        dk.reset_launches()
+        reset_engine_launches()
         ops.reset_dispatch_count()
         d0 = bank.dispatches
         m0 = dict(engine.metrics) if engine is not None else None
         futs = [service.submit(CacheRequest(q, max_tokens=NEW_TOKENS)) for q, _ in traffic]
         resps = [f.result(timeout=600) for f in futs]
-        launches = {"similarity_topk_lanes": kern.launches, "flash_attention": fk.launches,
-                    "decode_attention": dk.launches}
+        launches = {"similarity_topk_lanes": kern.launches, **engine_launches()}
         reads = bank.dispatches - d0
         dispatches = ops.dispatch_count()
         service.close()
@@ -752,32 +919,33 @@ def main_path(dev, gpu, backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile
         p50 = lambda rs: statistics.median(r.latency_s for r in rs) * 1e3  # noqa: E731
         # a CPU rehearsal runs the plain versions: no launch is counted there
         per_launch = 1 if on_card else 0
-        expect = {"similarity_topk_lanes": per_launch * reads, "flash_attention": 0,
-                  "decode_attention": 0}
+        expect = {"similarity_topk_lanes": per_launch * reads,
+                  **dict.fromkeys(engine_kernels(), 0)}
         engine_part = ""
         if engine is not None:
             prefills = (engine.metrics["prefill_tokens"] - m0["prefill_tokens"]) // PROMPT
             steps = engine.metrics["decode_steps"] - m0["decode_steps"]
-            n_layers = engine.cfg.num_layers
-            expect.update(flash_attention=per_launch * n_layers * prefills,
-                          decode_attention=per_launch * n_layers * steps)
+            expect.update(expected_launches(engine.cfg, prefills, steps, on_card))
             engine_part = f"engine_prefills={prefills} engine_decode_steps={steps} "
             if prefills == 0 or steps == 0:
                 raise AssertionError("the engine answered no miss")
+        ratio = p50(miss) / p50(hits + gen)
         print(f"traffic: llm={llm.name} requests={len(resps)} hits={len(hits)} "
               f"generative_hits={len(gen)} misses={len(miss)} "
               f"hit_p50_ms={p50(hits + gen):.3f} miss_p50_ms={p50(miss):.3f} "
-              f"miss_over_hit_p50={p50(miss) / p50(hits + gen):.2f} fused_reads={reads} "
-              f"{engine_part}launches={launches} service={service.stats} [{gpu}]")
+              f"miss_over_hit_p50={ratio:.2f} gate_5x={'pass' if ratio >= 5 else 'FAIL'} "
+              f"fused_reads={reads} {engine_part}launches={launches} service={service.stats} "
+              f"[{gpu}]")
         if launches != expect or reads == 0 or dispatches != reads:
             raise AssertionError(f"kernel launches {launches} != {expect} (fused reads {reads})")
         return h, bank, launches
 
-    # the same burst with PR 11's stand-in LLM (20 ms of sleep) first, so the
-    # engine's effect on hit latency is read within one run; then the main
-    # path proper, the engine answering the misses
+    # the same burst with the stand-in LLM (20 ms of sleep) first, so the
+    # engines' effect on hit latency is read within one run; then the main
+    # path proper, each engine answering the misses in turn
     replay(MockLLM("mock-llm", latency_s=0.02))
     h, bank, launches = replay(backend)
+    launches["ssd_scan"] = replay(ssm_backend)[2]["ssd_scan"]
 
     # one read's decisions recomputed with the plain version on the same bank
     levels = [c for _, c in h._levels()]
@@ -905,18 +1073,23 @@ def main() -> int:
             "similarity_topk": b2_checks(kern, dev)}
     attn_errs = attention_checks(dev)
     errs["flash_attention"], errs["decode_attention"] = attn_errs["flash"], attn_errs["decode"]
+    errs["ssd_scan"] = ssd_checks(dev)
     b1_times = kernel_times(kern, dev, gpu)
     times = {"similarity_topk_lanes": b1_times[8],  # the service's max_batch of 8
              "similarity_topk": b2_times(kern, dev, gpu)}
     attn_times = attention_times(dev, gpu)
     times["flash_attention"] = attn_times[PROMPT]  # the engine's prefill
     times["decode_attention"] = attn_times[ENGINE_SEQ]  # the engine's decode step
+    times["ssd_scan"] = ssd_times(dev, gpu)[PROMPT]  # the SSM engine's prefill
     torch.cuda.empty_cache()
     model_check(dev)
+    model_check(dev, SSM_LLM)
     torch.cuda.empty_cache()
     engine = engine_phase(dev, gpu)
+    # one prompt shorter than d_conv - 1: its conv tail is left-padded
+    ssm_engine = engine_phase(dev, gpu, SSM_LLM, lengths=(2, 32, 12, 27, 9, 20))
     launches, enc, queries = main_path(dev, gpu, ModelBackend(LLM, engine),
-                                       profile=args.profile)
+                                       ModelBackend(SSM_LLM, ssm_engine), profile=args.profile)
     torch.cuda.empty_cache()
     launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
     print("kernels: " + " ".join(f"{k} launches={v}" for k, v in launches.items()))
@@ -930,6 +1103,7 @@ def main() -> int:
          "decode_attention/kernel.py:78"),
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/kernel.py:98"),
+        ("ssd_scan", "ssd_scan/csrc/ssd_scan.cu", "ssd_scan/kernel.py:75"),
     ):
         t = times[name]
         figures.append({

@@ -1,14 +1,14 @@
 """Model configurations the port supports: ``get_config("<arch-id>")``."""
-from repro_torch.configs import qwen15_0_5b
+from repro_torch.configs import mamba2_1_3b, qwen15_0_5b
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-_MODULES = {"qwen1.5-0.5b": qwen15_0_5b}
+_MODULES = {"qwen1.5-0.5b": qwen15_0_5b, "mamba2-1.3b": mamba2_1_3b}
 
-# the reference's other architectures: their families (MoE, MLA, SSM,
-# hybrid, audio, vision) and configs are ROADMAP queue A item 10
+# the reference's other architectures: their families (MoE, MLA, hybrid,
+# audio, vision) and configs are ROADMAP queue A item 10
 NOT_PORTED = (
     "gemma3-4b", "gemma2-27b", "qwen3-8b", "deepseek-v3-671b", "llama4-scout-17b-a16e",
-    "llava-next-mistral-7b", "mamba2-1.3b", "musicgen-large", "zamba2-7b",
+    "llava-next-mistral-7b", "musicgen-large", "zamba2-7b",
 )
 
 ARCH_NAMES = tuple(_MODULES)

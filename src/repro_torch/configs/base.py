@@ -2,11 +2,11 @@
 fields the port reads.
 
 Every architecture is one frozen ``ModelConfig``; reduced smoke variants
-keep the family mechanisms at tiny widths. Only the dense family runs here,
-so the fields of the other families and of the reference's trainer and
-TPU programs are left out; each comes back with the slice that reads it:
+keep the family mechanisms at tiny widths. The dense and SSM families run
+here, so the fields of the other families and of the reference's trainer
+and TPU programs are left out; each comes back with the slice that reads it:
 
-- the MoE/MLA/SSM sub-configs, the hybrid and modality-frontend fields and
+- the MoE/MLA sub-configs, the hybrid and modality-frontend fields and
   ``mtp_depth`` with the other families (ROADMAP queue A item 10);
 - ``max_seq_len``, the training knobs (``remat``, ``remat_policy``,
   ``loss_chunk``, ``optimizer``, ``grad_accum``) and the parameter counts
@@ -20,13 +20,28 @@ TPU programs are left out; each comes back with the slice that reads it:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block widths (the reference's ``SSMConfig``)."""
+
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+    chunk_size: int = 256
+
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the others wait for ROADMAP queue A item 10)
+    family: str  # dense | ssm (the others wait for ROADMAP queue A item 10)
     num_layers: int
     d_model: int
     num_heads: int
@@ -53,5 +68,16 @@ class ModelConfig:
     norm_eps: float = 1e-6
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
 
+    # --- family sub-configs --------------------------------------------------
+    ssm: Optional[SSMConfig] = None
+
     # --- numerics -------------------------------------------------------------
     dtype: str = "bfloat16"
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm else 0
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.headdim if self.ssm else 0

@@ -1,0 +1,147 @@
+"""Mamba2 SSD chunked scan: the CUDA launch wrapper and its plain version.
+
+The scan takes x [B, S, H, P], Bm/Cm [B, S, G, N] (head h reads group
+h // (H // G); G = H is the reference's layout, G = ngroups the model's
+unrepeated one), dt [B, S, H] (float32, post-softplus, >= 0), A [H] (< 0)
+and D [H] (float32). It starts from a zero state and, chunk by chunk of
+L = min(chunk, S) steps, with cs = cumsum(dt * A) inside the chunk, returns
+
+    y[l]  = exp(cs[l]) C[l] . state + sum_{s <= l} (C[l] . B[s]) exp(cs[l] - cs[s]) dt[s] x[s]
+            + D x[l]
+    state <- state exp(cs[L-1]) + sum_s exp(cs[L-1] - cs[s]) dt[s] x[s] (x) B[s]
+
+all in float32: y in x's dtype, the final state [B, H, P, N] in float32. A
+last partial chunk acts as if zero-padded with dt = 0 (the reference model's
+rule): padded steps neither decay nor write the state.
+
+``ops.ssd_scan`` picks by the tensor's device: a CUDA tensor launches
+``ssd_scan_cuda`` (the Hopper kernel built from ``csrc/ssd_scan.cu``), a CPU
+tensor takes ``ssd_scan_plain``. The source is compiled on first use by
+``repro_torch.kernels.build``; nothing is built when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import CudaLibrary, require_sm90
+
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths P the CUDA kernel is built for
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ERR_SHARED_MEMORY = -1  # the launcher's code for a block that does not fit shared memory
+
+launches = 0  # CUDA launches of this kernel (one per wrapper call on a CUDA tensor)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIB = CudaLibrary(Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", _declare)
+
+
+def _check(x, Bm, Cm, dt, A, D, chunk) -> None:
+    if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape or dt.dim() != 3:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
+                         f"Cm {tuple(Cm.shape)}, dt {tuple(dt.shape)}")
+    B, S, H, _ = x.shape
+    G = Bm.shape[2]
+    if (Bm.shape[:2] != (B, S) or G < 1 or H % G or tuple(dt.shape) != (B, S, H)
+            or tuple(A.shape) != (H,) or tuple(D.shape) != (H,)):
+        raise ValueError(f"shapes: x {tuple(x.shape)}, Bm/Cm {tuple(Bm.shape)}, "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, D {tuple(D.shape)}")
+    if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"dtypes: x {x.dtype}, Bm {Bm.dtype}, Cm {Cm.dtype} "
+                        "(one of float32/bfloat16)")
+    if len({t.device for t in (x, Bm, Cm, dt, A, D)}) != 1:
+        raise ValueError(f"devices differ: {[str(t.device) for t in (x, Bm, Cm, dt, A, D)]}")
+    if chunk < 1 or S < 1:
+        raise ValueError(f"chunk {chunk} and sequence length {S} must be >= 1")
+
+
+def ssd_scan_plain(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
+    """Plain PyTorch version of the kernel: the reference model's
+    ``_ssd_chunk_scan`` (zero-padded to whole chunks, a loop over chunks,
+    float32 einsums), with groups repeated to heads. Same signature and
+    result as the kernel."""
+    _check(x, Bm, Cm, dt, A, D, chunk)
+    f32 = torch.float32
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    rep = H // Bm.shape[2]
+    xf, Bf, Cf = x.to(f32), Bm.to(f32), Cm.to(f32)
+    if rep > 1:
+        Bf, Cf = Bf.repeat_interleave(rep, dim=2), Cf.repeat_interleave(rep, dim=2)
+    dtf, A, D = dt.to(f32), A.to(f32), D.to(f32)
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:  # dt = 0 makes padded steps identity (no decay, no state write)
+        xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    tril = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, L):
+        x_c, B_c, C_c, dt_c = (t[:, c0:c0 + L] for t in (xf, Bf, Cf, dtf))
+        cs = torch.cumsum(dt_c * A, dim=1)  # [B, L, H], <= 0
+        y_off = torch.einsum("blhn,bhpn->blhp", C_c, h) * torch.exp(cs)[..., None]
+        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])  # [B, l, s, H]
+        scores = torch.einsum("blhn,bshn->blsh", C_c, B_c) * decay * dt_c[:, None, :, :]
+        scores = torch.where(tril[None, :, :, None], scores, 0.0)
+        y_diag = torch.einsum("blsh,bshp->blhp", scores, x_c)
+        last = cs[:, -1, :]  # [B, H]
+        sdecay = torch.exp(last[:, None, :] - cs) * dt_c  # [B, L, H]
+        h = h * torch.exp(last)[:, :, None, None] + torch.einsum(
+            "blhn,blhp,blh->bhpn", B_c, x_c, sdecay)
+        ys.append(y_off + y_diag + D[None, None, :, None] * x_c)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(x.dtype), h
+
+
+def ssd_scan_cuda(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
+    """Launch the Hopper kernel on the current stream (no synchronisation).
+    Raises, launching nothing, on what it does not take: another device
+    than an sm_90 card, x/Bm/Cm not all float32 or all bfloat16, dt/A/D
+    not float32, non-contiguous tensors, a head width outside
+    ``HEAD_DIMS`` (``ValueError``/``TypeError``), or a (P, N, chunk) whose
+    state and tiles do not fit shared memory (``RuntimeError``: the
+    launcher checks the device's limit before it launches)."""
+    global launches
+    _check(x, Bm, Cm, dt, A, D, chunk)
+    require_sm90(x, "ssd_scan")
+    for name, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dt", dt), ("A", A), ("D", D)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if P not in HEAD_DIMS:
+        raise ValueError(f"head width P={P} not in {HEAD_DIMS}")
+    L = min(chunk, S)
+    lib = LIB.load()
+    y = torch.empty_like(x)
+    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
+        y.data_ptr(), state.data_ptr(), Bsz, S, H, G, P, N, L, DTYPES[x.dtype], stream,
+    )
+    if err == ERR_SHARED_MEMORY:
+        raise RuntimeError(f"ssd_scan: the state and tiles of P={P} N={N} at chunk {L} "
+                           "do not fit the device's shared memory")
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+    launches += 1
+    return y, state

@@ -3,13 +3,14 @@
 
 A fixed decode batch of `max_batch` slots runs one ``decode_step`` per
 tick; requests are admitted into free slots as they arrive (prefill writes
-the slot's rows of the stacked KV cache in place), finished sequences free
+the slot's part of the stacked cache in place), finished sequences free
 their slot immediately — the vLLM-style continuous batching loop, with the
 semantic cache sitting in front via ModelBackend/EnhancedClient.
 
 Every slot decodes every tick, live or not: a free slot carries token 0 at
 position 0, as in the reference. Prefill runs at the prompt's exact length
-and leaves the slot as a fresh cache would (rows past the prompt cleared).
+and leaves the slot as a fresh cache would: a dense model's KV rows past
+the prompt are cleared, an SSM's conv tail and state are overwritten.
 """
 from __future__ import annotations
 
@@ -131,8 +132,8 @@ class ServingEngine:
             slot = self.slots.alloc()
             req.slot = slot
             S = len(req.tokens)
-            # exact-length prefill straight into the slot's rows (a view of
-            # the stacked cache); rows past S are cleared, as a fresh cache
+            # exact-length prefill straight into the slot (a view of the
+            # stacked cache), which it leaves as a fresh cache would
             slot_cache = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
             tokens = torch.as_tensor(req.tokens[None], dtype=torch.int64, device=self.device)
             logits, _ = T.prefill(self.params, self.cfg, {"tokens": tokens}, slot_cache)

@@ -1,8 +1,9 @@
 """CUDA legs of the port's tests: each Hopper kernel against its plain
 version on the card (similarity_topk lanes B1 and its single-store form B2,
-decode attention B3, flash attention B4), the wrappers' refusals, the read
-path through the kernel against the same read through the plain search,
-and the serving engine on the card against its CPU run.
+decode attention B3, flash attention B4, the SSD chunked scan B5), the
+wrappers' refusals, the read path through the kernel against the same read
+through the plain search, and the serving engines (dense and SSM) on the
+card against their CPU runs.
 
 They import torch and the port only, never JAX, so they also run where
 JAX is absent; ``tests/conftest.py`` imports JAX, hence ``--noconftest``:
@@ -12,7 +13,10 @@ JAX is absent; ``tests/conftest.py`` imports JAX, hence ``--noconftest``:
 Without a CUDA device every test here skips. Scores agree within
 atol = rtol = 2e-5 (float32 sums in another order); indices are equal
 wherever the score belongs to a valid row. Attention outputs agree within
-2e-5 in float32 and 2e-2 in bfloat16 (the reference kernel tests').
+2e-5 in float32 and 2e-2 in bfloat16 (the reference kernel tests'). The
+SSD scan agrees within 1e-4 in float32 (``tests/test_kernels_ssd.py``); in
+bfloat16 its y within 2e-2 (one bfloat16 step of the same float32 sums in
+another order) and its float32 state within 1e-4.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.similarity_topk import kernel as tk
 from repro_torch.kernels.similarity_topk import ops as tops
+from repro_torch.kernels.ssd_scan import kernel as sk
 
 torch.set_num_threads(1)
 
@@ -300,3 +305,93 @@ def test_engine_on_the_card_matches_its_cpu_run(dev):
 
 def _tree_to(tree, dev):
     return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+SSD_CASES = [
+    # B, S, H, G, P, N, chunk
+    (1, 32, 64, 1, 64, 128, 256),  # the engine's prefill (mamba2-1.3b, ngroups 1)
+    (1, 300, 8, 1, 64, 128, 256),  # ragged: two chunks, the second partial
+    (2, 256, 4, 4, 32, 64, 64),  # tests/test_kernels_ssd.py's cases, B/C per head
+    (1, 128, 8, 8, 64, 32, 32),
+    (2, 192, 2, 2, 16, 16, 64),
+    (1, 64, 4, 4, 64, 128, 64),
+    (2, 100, 8, 2, 32, 16, 32),  # groups of 4 heads, ragged
+    (1, 70, 2, 1, 128, 64, 64),  # P = 128
+    (1, 5, 4, 1, 16, 8, 64),  # shorter than one tile
+]
+
+
+def _ssd_inputs(B, S, H, G, P, N, dt_, dev, seed=9):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32)).to(dev, dt_)
+    Bm, Cm = (torch.from_numpy((rng.standard_normal((B, S, G, N)) * 0.5).astype(np.float32))
+              .to(dev, dt_) for _ in "BC")
+    dt = torch.from_numpy(np.logaddexp(rng.standard_normal((B, S, H)) - 1.0, 0.0)
+                          .astype(np.float32)).to(dev)
+    A = torch.from_numpy((-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)).to(dev)
+    D = torch.from_numpy(rng.standard_normal(H).astype(np.float32)).to(dev)
+    return x, Bm, Cm, dt, A, D
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dt_", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(case, dt_, dev):
+    B, S, H, G, P, N, chunk = case
+    args = _ssd_inputs(B, S, H, G, P, N, dt_, dev)
+    before = sk.launches
+    y1, st1 = sk.ssd_scan_cuda(*args, chunk=chunk)
+    y2, st2 = sk.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1 and y1.dtype == dt_ and st1.dtype == torch.float32
+    tol = 1e-4 if dt_ == torch.float32 else 2e-2
+    np.testing.assert_allclose(y1.float().cpu().numpy(), y2.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(st1.cpu().numpy(), st2.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, Bm, Cm, dt, A, D = _ssd_inputs(1, 16, 4, 1, 64, 32, torch.float32, dev)
+    s0 = sk.launches
+    with pytest.raises(TypeError, match="dtypes"):
+        sk.ssd_scan_cuda(x, Bm.bfloat16(), Cm, dt, A, D)
+    with pytest.raises(TypeError, match="dtypes"):
+        sk.ssd_scan_cuda(x.double(), Bm.double(), Cm.double(), dt, A, D)
+    with pytest.raises(TypeError, match="float32"):
+        sk.ssd_scan_cuda(x, Bm, Cm, dt.bfloat16(), A, D)
+    with pytest.raises(ValueError, match="devices differ"):
+        sk.ssd_scan_cuda(x, Bm, Cm, dt.cpu(), A, D)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.ssd_scan_cuda(*(t.cpu() for t in (x, Bm, Cm, dt, A, D)))
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, dt, A, D)
+    with pytest.raises(ValueError, match="head width"):
+        sk.ssd_scan_cuda(x[..., :48].contiguous(), Bm, Cm, dt, A, D)
+    big = torch.zeros((1, 16, 1, 1024), device=dev)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sk.ssd_scan_cuda(x, big, big, dt, A, D)
+    assert sk.launches == s0  # a refused call launches nothing
+
+
+def test_ssm_engine_on_the_card_matches_its_cpu_run(dev):
+    """The mamba2 smoke model in float32 through the engine on the card (the
+    SSD kernel) and on the CPU (its plain version): the same greedy tokens,
+    one scan launch per layer and prefill, none in a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True), dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1, 40, 2, 7, 11)]
+    outs = {}
+    for d in ("cpu", "cuda"):
+        p = _tree_to(params, dev) if d == "cuda" else params
+        eng = ServingEngine(cfg, p, max_batch=2, max_seq=64, device=d)
+        s0 = sk.launches
+        outs[d] = eng.generate(prompts, max_new_tokens=6)
+        if d == "cuda":
+            assert sk.launches - s0 == cfg.num_layers * len(prompts)
+    assert outs["cuda"] == outs["cpu"]
