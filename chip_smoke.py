@@ -3,7 +3,7 @@
 and, behind it, the miss path through the LLM serving engines (a dense and
 an SSM model).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--attention-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -30,13 +30,17 @@ Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 library device times from a profiler trace, or from CUDA events after a
 ``timer:`` line where the traces came back empty, the kernel's host rate, and the
 bound, at the main-path shapes and one longer shape each, with the card and
-its power limit), ``model:`` per model (full-width float32 model on the card
-against the CPU), per engine ``engine:`` lines (full-width bfloat16 engine:
-the kernels' launches per prefill and per decode step, counted before any
-timing loop, then prefill and decode-step p50 and tokens/s) and ``profile:
-decode`` (one decode step's device time by kernel, kernels per step and busy
-share), ``fill:``, ``traffic:`` per replay (hits, generative hits, misses
-served by the engine, latency p50s and the 5x gate, launch counts), ``decide:`` (one
+its power limit; B3's with its splits and grid), ``model:`` per model
+(full-width float32 model on the card against the CPU), per engine
+``engine:`` lines (full-width bfloat16 engine: the kernels' launches per
+prefill and per decode step, counted before any timing loop, then prefill
+and decode-step p50 and tokens/s) and ``profile: decode`` (one decode step's
+device time by kernel, kernels per step and busy share), after the qwen
+engine's an ``engine: qwen1.5-0.5b long`` line (its model calls with a
+[4, 8192] cache: a 2048-token prefill's and a decode step's p50 at
+pos = 8191, beside B4's and B3's device ms per call), ``fill:``,
+``traffic:`` per replay (hits, generative hits, misses served by the
+engine, latency p50s and the 5x gate, launch counts), ``decide:`` (one
 read's decisions recomputed with the plain version), ``read:`` (p50 of one
 fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
 lookups, each store search one call of ``ops.similarity_topk``),
@@ -44,7 +48,11 @@ lookups, each store search one call of ``ops.similarity_topk``),
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds ``profile:`` lines after ``read:``: one fused read's
-device time by kernel and the device's busy share. Any failure raises, and
+device time by kernel and the device's busy share. ``--attention-only``
+runs only B3 and B4 (build, checks, times, the long-engine line), and
+``--src DIR`` drives the repro_torch package under DIR instead of this
+checkout's, so that another tree (a parent commit unpacked beside it) is
+measured by the same code in the same run. Any failure raises, and
 the exit code is then non-zero. It exits non-zero without a CUDA device,
 and when the ``src/repro_torch`` package is not beside it.
 """
@@ -70,6 +78,7 @@ LLM = "qwen1.5-0.5b"
 SSM_LLM = "mamba2-1.3b"
 ENGINE_BATCH, ENGINE_SEQ, NEW_TOKENS = 4, 256, 16
 PROMPT = 32  # ModelBackend pads every prompt to 32 tokens
+LONG_SEQ, LONG_PROMPT = 8192, 2048  # the long-engine line: a RAG-sized prompt and cache
 
 
 def smi() -> str:
@@ -80,20 +89,25 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def host_ms(fn, iters=20, warmup=3):
-    """CUDA events around ``iters`` back-to-back calls: where a call's kernels
-    are short, this reads how fast the host queues them, not the device."""
+def host_ms(fn, iters=20, warmup=3, windows=5):
+    """CUDA events around ``iters`` back-to-back calls, the median of
+    ``windows`` such windows: where a call's kernels are short, this reads
+    how fast the host queues them, not the device (and the host's speed
+    wanders, hence the median)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def device_ms(fn, iters=20, warmup=3, traces=3):
@@ -247,22 +261,25 @@ def kernel_times(kern, dev, gpu):
     return out
 
 
-def build_all():
+def build_all(attention_only=False):
     """One nvcc per CUDA source, all started together; prints each
     library's build time."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.similarity_topk import kernel as tk
-    from repro_torch.kernels.ssd_scan import kernel as sk
 
     def timed(lib):
         t0 = time.perf_counter()
         lib.build()
         return lib.src.name, time.perf_counter() - t0
 
-    libs = [tk.LIB, fk.LIB, dk.LIB, sk.LIB]
+    libs = [fk.LIB, dk.LIB]
+    if not attention_only:
+        from repro_torch.kernels.similarity_topk import kernel as tk
+        from repro_torch.kernels.ssd_scan import kernel as sk
+
+        libs = [tk.LIB, *libs, sk.LIB]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         done = list(ex.map(timed, libs))
@@ -319,14 +336,17 @@ def b2_checks(kern, dev):
 
 
 FLASH_CASES = [
-    # B, S, H, KH, Dh, window, softcap
-    (1, PROMPT, 16, 16, 64, 0, 0.0),  # the main path's prefill
-    (1, 100, 8, 2, 64, 0, 0.0),  # ragged S (not a multiple of the 64-row tile), GQA
-    (2, 256, 8, 2, 64, 0, 0.0),  # GQA
-    (2, 512, 4, 1, 64, 128, 50.0),  # MQA + window + softcap
-    (1, 128, 4, 4, 128, 0, 30.0),  # softcap, Dh 128
-    (2, 77, 4, 2, 16, 7, 0.0),  # ragged + window, Dh 16 (the smoke model's)
-    (1, 2048, 16, 16, 64, 0, 0.0),  # the longer shape
+    # B, S, H, KH, Dh, window, softcap, causal
+    (1, PROMPT, 16, 16, 64, 0, 0.0, True),  # the main path's prefill
+    (1, 100, 8, 2, 64, 0, 0.0, True),  # ragged S (not a multiple of the 64-row tile), GQA
+    (2, 256, 8, 2, 64, 0, 0.0, True),  # GQA
+    (2, 512, 4, 1, 64, 128, 50.0, True),  # MQA + window + softcap
+    (1, 128, 4, 4, 128, 0, 30.0, True),  # softcap, Dh 128
+    (2, 77, 4, 2, 16, 7, 0.0, True),  # ragged + window, Dh 16 (the smoke model's)
+    (1, 2048, 16, 16, 64, 0, 0.0, True),  # the longer shape
+] + [  # every head width, S around and past the tile: plain, window + softcap, non-causal
+    (1, S, 4, 2, Dh, w, cap, causal) for Dh in (16, 32, 64, 128) for S in (1, 63, 65, 100, 2048)
+    for w, cap, causal in ((0, 0.0, True), (48, 30.0, True), (0, 0.0, False))
 ]
 DECODE_CASES = [
     # B, S, H, KH, Dh, window, softcap, lengths
@@ -336,7 +356,27 @@ DECODE_CASES = [
     (2, 512, 4, 1, 64, 128, 50.0, (1, 512)),  # MQA + window + softcap
     (2, 300, 4, 4, 128, 0, 0.0, (0, 299)),  # an empty sequence gives zeros
     (ENGINE_BATCH, 8192, 16, 16, 64, 0, 0.0, (8192,) * 4),  # the longer shape
+    # head groups over a split cache: G = 2, 4, 8 (GQA), 8 and 16 (MQA), 3
+    (2, 4096, 16, 8, 64, 0, 30.0, (4096, 1234)),
+    (2, 4096, 16, 4, 64, 0, 30.0, (4096, 1234)),
+    (2, 4096, 16, 2, 64, 0, 30.0, (4096, 1234)),
+    (2, 4096, 8, 1, 64, 0, 30.0, (4096, 1234)),
+    (2, 4096, 16, 1, 64, 0, 30.0, (4096, 1234)),
+    (2, 4096, 6, 2, 64, 0, 30.0, (4096, 1234)),
 ]
+
+
+def decode_split_cases(dk, dtype, B=ENGINE_BATCH, S=8192, H=16, Dh=64):
+    """B3 over a split cache (the longer shape): lengths ending at a split
+    boundary, one row before and after it; 0, 1 and S; a window that
+    straddles a boundary. The boundary comes from the kernel's own plan
+    (none for a tree without one)."""
+    if not hasattr(dk, "split_plan"):
+        return []
+    rows = dk.split_plan(B, H, S, Dh, dtype)[1]
+    return [(B, S, H, H, Dh, 0, 0.0, (rows, rows - 1, rows + 1, 2 * rows)),
+            (B, S, H, H, Dh, 0, 0.0, (0, 1, S, S - 1)),
+            (B, S, H, H, Dh, 700, 0.0, (rows + 300, 2 * rows + 10, S, 1))]
 
 
 def attention_checks(dev):
@@ -351,22 +391,30 @@ def attention_checks(dev):
     worst = {"flash": 0.0, "decode": 0.0}
     for dt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
         tag = "f32" if dt == torch.float32 else "bf16"
-        for B, S, H, KH, Dh, w, cap in FLASH_CASES:
+        for B, S, H, KH, Dh, w, cap, causal in FLASH_CASES:
             q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(dt)
                        for n in (H, KH, KH))
-            got = fk.flash_attention_cuda(q, k, v, window=w, softcap=cap)
-            want = fk.flash_attention_plain(q, k, v, window=w, softcap=cap)
-            name = f"B4 flash {tag} B={B} S={S} H={H} KH={KH} Dh={Dh} window={w} softcap={cap}"
-            worst["flash"] = max(worst["flash"], close_check(name, got, want, tol))
-        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES:
+            got = fk.flash_attention_cuda(q, k, v, causal=causal, window=w, softcap=cap)
+            want = fk.flash_attention_plain(q, k, v, causal=causal, window=w, softcap=cap)
+            name = (f"B4 flash {tag} B={B} S={S} H={H} KH={KH} Dh={Dh} window={w} "
+                    f"softcap={cap} causal={causal}")
+            err = close_check(name, got, want, tol)
+            worst["flash"] = max(worst["flash"], err)
+            worst[f"flash {tag}"] = max(worst.get(f"flash {tag}", 0.0), err)
+        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES + decode_split_cases(dk, dt):
             q = torch.randn((B, H, Dh), generator=g, device=dev).to(dt)
             k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt) for _ in "kv")
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             got = dk.decode_attention_cuda(q, k, v, lengths, window=w, softcap=cap)
             want = dk.decode_attention_plain(q, k, v, lengths, window=w, softcap=cap)
+            splits = getattr(dk, "num_splits", lambda *a: 1)(B, KH, S, Dh, dt)
             name = (f"B3 decode {tag} B={B} S={S} H={H} KH={KH} Dh={Dh} window={w} "
-                    f"softcap={cap} lengths={list(lens)}")
-            worst["decode"] = max(worst["decode"], close_check(name, got, want, tol))
+                    f"softcap={cap} lengths={list(lens)} splits={splits}")
+            err = close_check(name, got, want, tol)
+            worst["decode"] = max(worst["decode"], err)
+            worst[f"decode {tag}"] = max(worst.get(f"decode {tag}", 0.0), err)
+    print("check: worst " + " ".join(f"{k.replace(' ', '_')}={v:.3e}"
+                                     for k, v in worst.items() if " " in k))
     return worst
 
 
@@ -421,8 +469,13 @@ def attention_times(dev, gpu):
         bound, by = _bound(2 * rows * H * Dh * 2 + 2 * B * H * Dh * 2 + B * 4,
                            4 * H * Dh * rows, BF16_FLOP_PER_S)
         out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+        if hasattr(dk, "launch_grid"):
+            (gx, ns), threads = dk.launch_grid(B, H, H, S, Dh, bf16)
+            grid = f"splits={ns} grid=({gx},{ns})x{threads}"
+        else:
+            grid = "splits=n/a grid=n/a"
         print(f"time: decode_attention bf16 B={B} S={S} H={H} KH={H} Dh={Dh} "
-              f"lengths={list(lens)} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
+              f"lengths={list(lens)} {grid} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
               f"plain_ms={p_ms:.4f} "
               f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by}) "
               f"share_of_bound={bound / k_ms:.3f} [{gpu}]")
@@ -644,6 +697,21 @@ def expected_launches(cfg, prefills, steps, on_card=True):
     return want
 
 
+def p50_ms(fn, n=15, warmup=3):
+    """Median host-clock ms of ``fn`` run to completion on the card, after
+    ``warmup`` calls (counted in the ``n``)."""
+    import torch
+
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts[warmup:])
+
+
 def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
     """ServingEngine for ``name`` at full width in bfloat16 on the card:
     prompts of ``lengths`` through ``generate``; the kernels' launches
@@ -698,16 +766,6 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
     def decode():
         return T.decode_step(engine.params, cfg, step_toks, step_pos, engine.cache)
 
-    def p50_ms(fn, n=15):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(ts[3:])
-
     pre_ms, dec_ms = p50_ms(prefill), p50_ms(decode)
     print(f"engine: {name} bfloat16 params={sum(x.numel() for x in _leaves(engine.params))} "
           f"max_batch={ENGINE_BATCH} max_seq={ENGINE_SEQ} setup_s={setup_s:.1f} "
@@ -718,6 +776,69 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
           f"[{gpu}]")
     profile_decode(decode, gpu, name)
     return engine
+
+
+def engine_long_phase(dev, gpu, params, cfg, name=LLM):
+    """The full-width bfloat16 dense model's own calls at long lengths, as
+    ``engine_phase`` times them at the engine's: a [4, 8192] cache from
+    ``T.init_cache``, then the p50 of one 2048-token prefill into one slot
+    and of a B = 4 decode step at pos = 8191 (every sequence 8192 rows long),
+    with B4's and B3's device ms per call from a profiler trace of the same
+    calls. Launches, counted over every call: flash == layers x prefills,
+    decode == layers x steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    cache = T.init_cache(cfg, ENGINE_BATCH, LONG_SEQ, device=dev)
+    cache_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
+    slot = {k: v[:, :1] for k, v in cache.items()}
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT)), device=dev)
+    step_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, 1)), device=dev)
+    pos = torch.full((ENGINE_BATCH,), LONG_SEQ - 1, dtype=torch.int64, device=dev)
+    calls = {"prefill": 0, "decode_step": 0}
+    outs = []
+
+    def prefill():
+        calls["prefill"] += 1
+        outs.append(T.prefill(params, cfg, {"tokens": toks}, slot)[0])
+
+    def decode():
+        calls["decode_step"] += 1
+        outs.append(T.decode_step(params, cfg, step_toks, pos, cache)[0])
+
+    torch.cuda.synchronize()
+    reset_engine_launches()
+    pre_ms, dec_ms = p50_ms(prefill, n=10), p50_ms(decode, n=10)
+    torch.cuda.synchronize()
+    got = engine_launches()
+    want = expected_launches(cfg, calls["prefill"], calls["decode_step"])
+    if got != want:
+        raise AssertionError(f"long-engine kernel launches {got} != {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in outs):
+        raise AssertionError("the long-engine logits are not finite")
+    per_call = {}
+    for fn, kname, call in ((prefill, "flash_fwd", "prefill"), (decode, "decode_fwd", "step")):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = [e.device_time_total / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e.device_time_total / 1e3 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kname in e.name]
+        per_call[call] = (sum(mine) / max(len(mine), 1), sum(dev_ms) / 3)
+    print(f"engine: {name} long {cfg.dtype} cache=[{ENGINE_BATCH}, {LONG_SEQ}] "
+          f"cache_GB={cache_gb:.2f} prefill_S{LONG_PROMPT}_p50_ms={pre_ms:.3f} "
+          f"decode_step_B{ENGINE_BATCH}_pos{LONG_SEQ - 1}_p50_ms={dec_ms:.3f} "
+          f"flash_device_ms_per_call={per_call['prefill'][0]:.4f} "
+          f"decode_device_ms_per_call={per_call['step'][0]:.4f} "
+          f"prefill_device_ms={per_call['prefill'][1]:.3f} "
+          f"decode_step_device_ms={per_call['step'][1]:.3f} launches={got} [{gpu}]")
+    del cache, slot, outs
 
 
 def profile_decode(decode, gpu, name, steps=5):
@@ -1043,11 +1164,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused read and print where its time goes")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="only B3 and B4: build them, hold them against their plain "
+                         "versions, time them and the long-engine line, then stop")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the directory holding the repro_torch package to drive (default: "
+                         "this checkout's src; another tree's, e.g. a parent commit "
+                         "unpacked beside it, to compare both in one run)")
     args = ap.parse_args()
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
+    if not (args.src / "repro_torch").is_dir():
+        print(f"chip_smoke: {args.src}/repro_torch is not there", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     import torch
 
     if not torch.cuda.is_available():
@@ -1062,8 +1190,18 @@ def main() -> int:
     dev = torch.device("cuda")
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
-          f"capability={torch.cuda.get_device_capability(0)}")
-    build_all()
+          f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
+    build_all(args.attention_only)
+    if args.attention_only:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+
+        attention_checks(dev)
+        attention_times(dev, gpu)
+        cfg = get_config(LLM)
+        engine_long_phase(dev, gpu, T.init_params(cfg, SEED, device=dev), cfg)
+        print(f"attention-only: done [{gpu}]")
+        return 0
     print(f"build: similarity_topk_lanes tile_rows={kern.tile_rows()} "
           f"default_block_n={ops.default_block_n()}")
     if kern.tile_rows() != ops.default_block_n():
@@ -1086,6 +1224,8 @@ def main() -> int:
     model_check(dev, SSM_LLM)
     torch.cuda.empty_cache()
     engine = engine_phase(dev, gpu)
+    engine_long_phase(dev, gpu, engine.params, engine.cfg)
+    torch.cuda.empty_cache()
     # one prompt shorter than d_conv - 1: its conv tail is left-padded
     ssm_engine = engine_phase(dev, gpu, SSM_LLM, lengths=(2, 32, 12, 27, 9, 20))
     launches, enc, queries = main_path(dev, gpu, ModelBackend(LLM, engine),

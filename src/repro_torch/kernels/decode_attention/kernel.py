@@ -12,6 +12,11 @@ launches ``decode_attention_cuda`` (the Hopper kernel built from
 ``csrc/decode_attention.cu``), a CPU tensor takes ``decode_attention_plain``.
 The source is compiled on first use by
 ``repro_torch.kernels.build``; nothing is built when the module is imported.
+
+The kernel splits the cache rows over ``split_plan``'s NS blocks per
+(b, KV head), chosen from the shapes alone (never from ``lengths``, which
+lies on the card), and merges the splits' partial softmax states in the
+same launch.
 """
 from __future__ import annotations
 
@@ -24,8 +29,12 @@ from repro_torch.kernels.build import CudaLibrary, require_sm90
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_S = 64  # cache rows per tile (``BS`` in the CUDA source)
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
+BLOCK_S = 64  # cache rows per split tile (``TILE`` in the CUDA source)
+THREADS = 256  # threads per block (``THREADS`` in the CUDA source)
+MAX_SPLITS = 64  # most splits per (b, KV head) (``MAX_SPLITS`` in the CUDA source)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+WAVES = 2  # long caches fill the card about this many times over
+MIN_SPLIT_BYTES = 128 * 1024  # K and V bytes a split reads at least
 
 launches = 0  # CUDA launches of this kernel (one per wrapper call on a CUDA tensor)
 
@@ -37,12 +46,57 @@ def reset_launches() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
 LIB = CudaLibrary(Path(__file__).resolve().parent / "csrc" / "decode_attention.cu", _declare)
+
+
+def split_plan(B: int, KH: int, S: int, Dh: int, dtype: torch.dtype) -> tuple:
+    """(NS, rows per split) for a [B, S, KH, Dh] cache, from the shapes
+    alone. Splits are runs of whole ``BLOCK_S``-row tiles that cover [0, S),
+    none of them empty: NS = ceil(tiles / tiles per split). A split reads at
+    least ``MIN_SPLIT_BYTES`` of K and V when the cache is full, so short
+    caches (the engine's S = 256) stay one pass; long ones get enough splits
+    for B * KH * NS blocks to fill the card ``WAVES`` times over."""
+    tiles = -(-S // BLOCK_S)
+    tile_bytes = 2 * BLOCK_S * Dh * dtype.itemsize
+    most = max(1, min(MAX_SPLITS, tiles * tile_bytes // MIN_SPLIT_BYTES))
+    want = max(1, min(most, -(-WAVES * SMS // max(B * KH, 1))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * BLOCK_S
+
+
+def num_splits(B: int, KH: int, S: int, Dh: int, dtype: torch.dtype) -> int:
+    """NS of ``split_plan``: the blocks per (b, KV head) the kernel runs."""
+    return split_plan(B, KH, S, Dh, dtype)[0]
+
+
+def launch_grid(B: int, H: int, KH: int, S: int, Dh: int, dtype: torch.dtype) -> tuple:
+    """The kernel's grid (B * KH * head chunks, NS) and threads per block.
+    A block serves up to 8 query heads of its KV head (the launcher rounds
+    the group G up to 1, 2, 4 or 8), so G > 8 takes ceil(G / 8) chunks."""
+    G = H // KH
+    chunks = -(-G // 8)
+    return (B * KH * chunks, num_splits(B, KH, S, Dh, dtype)), THREADS
+
+
+_scratch = {}  # device index -> (float32 workspace, int32 counters), grown on demand
+
+
+def _workspace(dev: torch.device, n_ws: int, n_counters: int):
+    """The split merge's float32 workspace and its zeroed counters, cached
+    per device and grown when a call needs more. The kernel leaves every
+    counter at 0, so the buffers serve every later launch on the stream."""
+    ws, cnt = _scratch.get(dev.index, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    _scratch[dev.index] = (ws, cnt)
+    return ws, cnt
 
 
 def _check(q, k, v, lengths) -> None:
@@ -87,8 +141,9 @@ def decode_attention_cuda(q, k, v, lengths, *, window=0, softcap=0.0, scale=None
     """Launch the Hopper kernel on the current stream (no synchronisation).
     Raises, launching nothing, on what it does not take: another device
     than an sm_90 card, a dtype other than float32/bfloat16 (one for q, k
-    and v; int32 lengths), non-contiguous tensors, a head width outside
-    ``HEAD_DIMS``, a head group too large for shared memory."""
+    and v; int32 lengths), non-contiguous tensors or tensors not aligned to
+    16 bytes (the kernel's vector loads), a head width outside
+    ``HEAD_DIMS``."""
     global launches
     _check(q, k, v, lengths)
     require_sm90(q, "decode_attention")
@@ -97,23 +152,28 @@ def decode_attention_cuda(q, k, v, lengths, *, window=0, softcap=0.0, scale=None
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's vector loads")
     B, H, Dh = q.shape
     S, KH = k.shape[1], k.shape[2]
-    G = H // KH
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
-    smem = (2 * G * Dh + 2 * BLOCK_S * (Dh + 1) + G * BLOCK_S + 3 * G) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{G} query heads per KV head need {smem} bytes of shared memory")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
     scale = scale if scale is not None else Dh ** -0.5
+    ns, rows = split_plan(B, KH, S, Dh, q.dtype)
     lib = LIB.load()
     o = torch.empty_like(q)
+    ws_ptr = cnt_ptr = None
+    if ns > 1:
+        ws, cnt = _workspace(q.device, B * H * ns * (Dh + 2), B * H)
+        ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        B, S, H, KH, Dh, DTYPES[q.dtype], int(window), float(softcap), float(scale), stream,
+        ws_ptr, cnt_ptr, B, S, H, KH, Dh, DTYPES[q.dtype], ns, rows, int(window),
+        float(softcap), float(scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")

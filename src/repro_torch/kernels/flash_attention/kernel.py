@@ -7,8 +7,13 @@ with float32 scores and accumulation; the output has q's dtype and a row
 with no valid key is zeros (the TPU kernel's rule).
 
 ``ops.flash_attention`` picks by the tensor's device: a CUDA tensor
-launches ``flash_attention_cuda`` (the Hopper kernel built from
-``csrc/flash_attention.cu``), a CPU tensor takes ``flash_attention_plain``.
+launches ``flash_attention_cuda`` (the Hopper kernels built from
+``csrc/flash_attention.cu``: bfloat16 on the tensor cores, by wgmma at
+head widths 64 and 128 and mma.sync at 16 and 32; float32 on scalar FP32
+FMAs, so float32 callers keep float32 exactness), a CPU tensor
+takes ``flash_attention_plain``. The tensor-core kernels round P to bfloat16
+for PV, as FlashAttention does; the reference and the plain version keep P
+in float32.
 The source is compiled on first use by
 ``repro_torch.kernels.build``; nothing is built when the module is imported.
 """
@@ -82,13 +87,17 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0, scale=N
     """Launch the Hopper kernel on the current stream (no synchronisation).
     Raises, launching nothing, on what it does not take: another device
     than an sm_90 card, a dtype other than float32/bfloat16 (one for all
-    three), non-contiguous tensors, a head width outside ``HEAD_DIMS``."""
+    three), non-contiguous tensors, bfloat16 tensors not aligned to 16 bytes
+    (the tensor-core kernel's 16-byte copies), a head width outside
+    ``HEAD_DIMS``."""
     global launches
     _check(q, k, v)
     require_sm90(q, "flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernel")
     B, S, H, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")

@@ -2,7 +2,8 @@
 ``repro_torch.kernels.{flash,decode}_attention``) against the reference's
 oracles (``ref.py``) for every case of ``tests/test_kernels_flash.py``, and
 against the Pallas kernels in interpret mode for two small cases, plus a
-ragged S, lengths of 1 and S_max, and the kernels' zero-row rule.
+ragged S, lengths of 1 and S_max, and the kernels' zero-row rule; and the
+decode kernel's split plan, which the wrapper computes on the host.
 
 Inputs are made with numpy from a seed and fed to both packages; bfloat16
 inputs are the same float32 draws rounded to bfloat16 by each framework.
@@ -172,3 +173,37 @@ def test_wrappers_refuse_malformed_inputs():
         flash_attention(q, k[:, :, :3], v[:, :, :3])  # 4 heads over 3 KV heads
     with pytest.raises(ValueError):
         decode_attention(q[:, 0], k, v, torch.tensor([1, 2], dtype=torch.int32))
+
+
+SPLIT_SHAPES = [
+    # B, KH, S
+    (4, 16, 256),  # the engine's decode
+    (4, 16, 8192),  # the long cache of chip_smoke.py's time line
+    (1, 2, 8192),
+    (1, 1, 1),
+    (2, 8, 300),  # ragged: no multiple of the tile
+    (4, 16, 1 << 20),  # more tiles than splits allowed
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_plan_covers_the_cache_in_whole_tiles(shape, dtype):
+    """Splits are runs of whole tiles that cover [0, S), none of them empty:
+    every split starts below S, and the last one reaches it."""
+    B, KH, S = shape
+    for Dh in dk.HEAD_DIMS:
+        ns, rows = dk.split_plan(B, KH, S, Dh, dtype)
+        assert 1 <= ns <= dk.MAX_SPLITS and rows > 0 and rows % dk.BLOCK_S == 0
+        assert (ns - 1) * rows < S <= ns * rows
+        assert dk.num_splits(B, KH, S, Dh, dtype) == ns
+
+
+def test_split_plan_keeps_short_caches_whole_and_fills_the_card_on_long_ones():
+    bf16 = torch.bfloat16
+    assert dk.num_splits(4, 16, 256, 64, bf16) == 1  # the engine's shape: one pass
+    ns = dk.num_splits(4, 16, 8192, 64, bf16)
+    assert 1.5 * dk.SMS <= 4 * 16 * ns <= 3 * dk.SMS  # about twice over
+    assert dk.launch_grid(4, 16, 16, 8192, 64, bf16) == ((4 * 16, ns), dk.THREADS)
+    # a group of 12 query heads per KV head takes two head chunks of 8
+    assert dk.launch_grid(2, 24, 2, 256, 64, bf16) == ((2 * 2 * 2, 1), dk.THREADS)

@@ -250,6 +250,89 @@ def test_decode_kernel_matches_plain(case, dt, dev):
                                atol=tol, rtol=tol)
 
 
+FLASH_SWEEP = [
+    # (window, softcap, causal)
+    (0, 0.0, True),
+    (48, 30.0, True),  # a window and a softcap
+    (0, 0.0, False),
+]
+
+
+@pytest.mark.parametrize("variant", FLASH_SWEEP)
+@pytest.mark.parametrize("S", [1, 63, 65, 100, 2048])
+@pytest.mark.parametrize("Dh", fk.HEAD_DIMS)
+def test_flash_tensor_core_kernel_matches_plain(Dh, S, variant, dev):
+    """bf16 (the tensor-core kernel) at every head width, S around and past
+    the 64-row tile, GQA."""
+    window, cap, causal = variant
+    q = _randn((1, S, 4, Dh), torch.bfloat16, dev, 10)
+    k, v = (_randn((1, S, 2, Dh), torch.bfloat16, dev, s) for s in (11, 12))
+    before = fk.launches
+    got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1 and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def _decode_matches_plain(B, S, H, KH, Dh, lens, dt, dev, window=0, cap=0.0, seed=13):
+    q = _randn((B, H, Dh), dt, dev, seed)
+    k, v = _randn((B, S, KH, Dh), dt, dev, seed + 1), _randn((B, S, KH, Dh), dt, dev, seed + 2)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = dk.launches
+    got = dk.decode_attention_cuda(q, k, v, lengths, window=window, softcap=cap)
+    want = dk.decode_attention_plain(q, k, v, lengths, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 1 and got.dtype == dt
+    tol = ATTN_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_lengths_at_split_boundaries(dt, dev):
+    """Lengths ending exactly at a split boundary, one row before and after
+    it; 0, 1 and S (8192); a window straddling a boundary. A second call
+    gives the same output (the kernel reset its split counters)."""
+    B, S, H, Dh = 4, 8192, 16, 64
+    ns, rows = dk.split_plan(B, H, S, Dh, dt)
+    assert ns > 1
+    for lens, window in (((rows, rows - 1, rows + 1, 2 * rows), 0),
+                         ((0, 1, S, S - 1), 0),
+                         ((rows + 300, 2 * rows + 10, S, 1), 700)):
+        got = _decode_matches_plain(B, S, H, H, Dh, lens, dt, dev, window=window)
+        again = dk.decode_attention_cuda(*(_randn(shape, dt, dev, s) for shape, s in
+                                           (((B, H, Dh), 13), ((B, S, H, Dh), 14),
+                                            ((B, S, H, Dh), 15))),
+                                         torch.tensor(lens, dtype=torch.int32, device=dev),
+                                         window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        if lens[0] == 0:
+            assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("heads", [(16, 8), (16, 4), (16, 2), (8, 1), (6, 2), (16, 1)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_head_groups_over_splits(heads, dt, dev):
+    """GQA at G = 2, 4 and 8, MQA (G = 8 and G = 16, two head chunks) and a
+    group of 3, over a split cache."""
+    H, KH = heads
+    assert dk.num_splits(2, KH, 4096, 64, dt) > 1
+    _decode_matches_plain(2, 4096, H, KH, 64, (4096, 1234), dt, dev, cap=30.0)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = _randn((1, 16, 4, 64), torch.float32, dev, 6)
     k = _randn((1, 16, 2, 64), torch.float32, dev, 7)
@@ -274,6 +357,18 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
         dk.decode_attention_cuda(q[:, 0].bfloat16(), k, k, lengths)
     with pytest.raises(ValueError, match="devices differ"):
         dk.decode_attention_cuda(q[:, 0], k, k, lengths.cpu())
+    for dt in (torch.float32, torch.bfloat16):  # the decode kernel's 16-byte loads
+        qd, kd = q[:, 0].to(dt), k.to(dt)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            dk.decode_attention_cuda(_misaligned(qd), kd, kd, lengths)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            dk.decode_attention_cuda(qd, kd, _misaligned(kd), lengths)
+    qb, kb = q.bfloat16(), k.bfloat16()  # the tensor-core kernel's 16-byte copies
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fk.flash_attention_cuda(qb, _misaligned(kb), kb)
+    fk.flash_attention_cuda(_misaligned(q), k, k)  # float32: the scalar kernel takes it
+    torch.cuda.synchronize()
+    f0 += 1
     assert (fk.launches, dk.launches) == (f0, d0)  # a refused call launches nothing
 
 
