@@ -3,7 +3,7 @@
 and, behind it, the miss path through the LLM serving engines (a dense and
 an SSM model).
 
-    python3 chip_smoke.py [--profile] [--attention-only] [--src DIR]
+    python3 chip_smoke.py [--profile] [--attention-only | --topk-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -25,12 +25,15 @@ and then serves a burst of requests through the port's real entry points:
          the recurrent update in plain torch
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
-``build:`` (nvcc seconds per library), ``check:`` per kernel-vs-plain case
-(B1, B2 = B1 at L = 1, B3, B4, B5), ``time:`` lines (kernel / plain /
+``build:`` (nvcc seconds per library; B1's stream route and main-path
+grid), ``check:`` per kernel-vs-plain case (B1 with its route, streaming
+or tile, incl. ``lane_rows`` below N, Q 1..64 across the small-Q threshold
+and every k class; B2 = B1 at L = 1, B3, B4, B5), ``time:`` lines (kernel / plain /
 library device times from a profiler trace, or from CUDA events after a
 ``timer:`` line where the traces came back empty, the kernel's host rate, and the
 bound, at the main-path shapes and one longer shape each, with the card and
-its power limit; B3's with its splits and grid), ``model:`` per model
+its power limit; B1 at Q 1/2/4/8/64 on the full bank and on the main
+path's lane_rows, with its route; B3's with its splits and grid), ``model:`` per model
 (full-width float32 model on the card against the CPU), per engine
 ``engine:`` lines (full-width bfloat16 engine: the kernels' launches per
 prefill and per decode step, counted before any timing loop, then prefill
@@ -49,7 +52,8 @@ kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds ``profile:`` lines after ``read:``: one fused read's
 device time by kernel and the device's busy share. ``--attention-only``
-runs only B3 and B4 (build, checks, times, the long-engine line), and
+runs only B3 and B4 (build, checks, times, the long-engine line),
+``--topk-only`` only B1 and B2 (build, checks, times), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -159,14 +163,26 @@ def queued_event_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def check_case(name, db, valid, q, k, kern, ops_kw=None):
+def has_lane_rows(kern):
+    """Whether the tree's kernel takes ``lane_rows`` (and routes small Q to
+    a streaming kernel); an older tree measured with ``--src`` does not."""
+    return hasattr(kern, "split_plan")
+
+
+def route_of(kern, Q, D, k):
+    return kern.route(Q, D, k) if has_lane_rows(kern) else "tile"
+
+
+def check_case(name, db, valid, q, k, kern, ops_kw=None, lane_rows=None):
     """Kernel vs plain on the same card tensors; raises on disagreement.
     Returns the max abs score error."""
     import torch
 
     if ops_kw is None:
-        s1, i1 = kern.similarity_topk_lanes_cuda(db, valid, q, k)
-        s2, i2 = kern.similarity_topk_lanes_plain(db, valid, q, k)
+        rows = () if lane_rows is None else (lane_rows,)
+        s1, i1 = kern.similarity_topk_lanes_cuda(db, valid, q, k, *rows)
+        s2, i2 = kern.similarity_topk_lanes_plain(db, valid, q, k, *rows)
+        name += f" route={route_of(kern, q.shape[0], db.shape[2], k)}"
     else:
         from repro_torch.kernels.similarity_topk import ops
 
@@ -221,65 +237,122 @@ def kernel_checks(kern, dev):
     valid_t[1, :40] = False
     qt = torch.randint(-4, 5, (6, 64), generator=g, device=dev).float() / 4
     check_case("exact ties (dyadic duplicated rows) L=2 N=120 k=6", ties, valid_t, qt, 6, kern)
+    if has_lane_rows(kern):
+        worst = max(worst, lane_rows_checks(kern, dev, g))
+    return worst
+
+
+def lane_rows_checks(kern, dev, g):
+    """The cases of the streaming kernel and of ``lane_rows``: the main
+    path's bank with lane 0's rows past L1_CAP marked valid (they must stay
+    unread), Q on both sides of the small-Q threshold with every k class,
+    exact ties a block and a warp stage apart, an all-invalid lane, fewer
+    valid rows than k and a lane holding fewer rows than k."""
+    import torch
+
+    worst = 0.0
+    caps = (L1_CAP, L2_CAP)
+    for Q in (1, 8):
+        db = torch.randn((2, L2_CAP, DIM), generator=g, device=dev)
+        db /= torch.linalg.vector_norm(db, dim=-1, keepdim=True)
+        valid = torch.rand((2, L2_CAP), generator=g, device=dev) < 0.9  # valid past L1_CAP too
+        q = torch.randn((Q, DIM), generator=g, device=dev)
+        worst = max(worst, check_case(
+            f"main-path lane_rows={caps} L=2 N={L2_CAP} D={DIM} Q={Q} k={TOPK}",
+            db, valid, q, TOPK, kern, lane_rows=caps))
+        del db
+    db = torch.randn((2, 4096, DIM), generator=g, device=dev)
+    valid = torch.rand((2, 4096), generator=g, device=dev) < 0.9
+    for Q in (1, 2, 3, 4, 8, 16, 17, 64):
+        q = torch.randn((Q, DIM), generator=g, device=dev)
+        for k in (1, 4, 16, kern.KMAX, kern.KMAX + 1):
+            for rows in (None, (1000, 4096)):
+                worst = max(worst, check_case(
+                    f"sweep L=2 N=4096 D={DIM} Q={Q} k={k} lane_rows={rows}",
+                    db, valid, q, k, kern, lane_rows=rows))
+    L, N, D, Q, k = 4, 4096, 64, 5, 8
+    per = kern.split_plan((N,) * L)[0][0]
+    db = torch.randint(-4, 5, (L, N, D), generator=g, device=dev).float() / 4
+    base = db[:, :64].clone()
+    db[:, 64:128] = base  # other warps and stages of the same block
+    db[:, per:per + 64] = base  # the next block
+    valid = torch.rand((L, N), generator=g, device=dev) < 0.9
+    valid[1] = False  # an all-invalid lane
+    valid[2] = False
+    valid[2, [3, 3 + per, 2000]] = True  # fewer valid rows than k
+    valid[3, :5] = True
+    q = torch.randint(-4, 5, (Q, D), generator=g, device=dev).float() / 4
+    for rows in (None, (N, N, N, 5)):  # lane 3 holding fewer rows than k
+        check_case(f"ties a block apart, invalid lane, few rows L={L} N={N} D={D} Q={Q} "
+                   f"k={k} lane_rows={rows}", db, valid, q, k, kern, lane_rows=rows)
     return worst
 
 
 def kernel_times(kern, dev, gpu):
-    """Kernel, plain and library device times at the main-path shape per
-    batch bucket, beside the card's bound for the same work; the kernel's
-    host rate (``host_ms``) beside them."""
+    """Kernel, plain and library device times per batch bucket, beside the
+    card's bound for the same work and the kernel's host rate
+    (``host_ms``), at two shapes of the [2, 131072, 768] bank: "full" (90%
+    of every row valid, every row read) and "main-path" (the fused read's:
+    lane 0 is the 16384-slot L1, nothing valid past it, and the kernel told
+    so by ``lane_rows``; its bound counts the rows inside capacity). A tree
+    without ``lane_rows`` reads the whole bank at the main-path shape too.
+    Each line names the route (streaming or tile kernel) the call took."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     db = torch.randn((2, L2_CAP, DIM), generator=g, device=dev)
     db /= torch.linalg.vector_norm(db, dim=-1, keepdim=True)
-    valid = torch.rand((2, L2_CAP), generator=g, device=dev) < 0.9
+    valid_full = torch.rand((2, L2_CAP), generator=g, device=dev) < 0.9
+    valid_main = valid_full.clone()
+    valid_main[0, L1_CAP:] = False
+    L, N, D = db.shape
     out = {}
-    for Q in (1, 8, 64):
-        q = torch.randn((Q, DIM), generator=g, device=dev)
-        k_ms = device_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK))
-        h_ms = host_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK))
-        p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db, valid, q, TOPK), iters=5)
+    for shape, valid, caps in (("full", valid_full, (N, N)),
+                               ("main-path", valid_main, (L1_CAP, L2_CAP))):
+        rows = (caps,) if has_lane_rows(kern) and shape == "main-path" else ()
+        for Q in (1, 2, 4, 8, 64):
+            q = torch.randn((Q, DIM), generator=g, device=dev)
+            k_ms = device_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK, *rows))
+            h_ms = host_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK, *rows))
+            p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db, valid, q, TOPK, *rows),
+                             iters=5)
 
-        def library():
-            s = torch.matmul(q.unsqueeze(0), db.transpose(1, 2))
-            return torch.topk(s.masked_fill(~valid[:, None, :], float("-inf")), TOPK, dim=-1)
+            def library():
+                s = torch.matmul(q.unsqueeze(0), db.transpose(1, 2))
+                return torch.topk(s.masked_fill(~valid[:, None, :], float("-inf")), TOPK, dim=-1)
 
-        l_ms = device_ms(library, iters=10)
-        L, N, D = db.shape
-        nbytes = db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * L * Q * TOPK * 4
-        flops = 2 * Q * L * N * D
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        out[Q] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
-        print(f"time: similarity_topk_lanes L=2 N={N} D={D} Q={Q} k={TOPK} "
-              f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={l_ms:.4f} "
-              f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
+            l_ms = device_ms(library, iters=10)
+            held = sum(caps)  # rows inside capacity: what the read must stream
+            bound, by = _bound(held * D * 4 + held + q.numel() * 4 + 2 * L * Q * TOPK * 4,
+                               2 * Q * held * D, FP32_FLOP_PER_S)
+            out[shape, Q] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                                 bound_by=by)
+            print(f"time: similarity_topk_lanes {shape} L=2 N={N} D={D} lane_rows={caps} "
+                  f"Q={Q} k={TOPK} route={route_of(kern, Q, D, TOPK)} "
+                  f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"library_ms={l_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
     return out
 
 
-def build_all(attention_only=False):
+def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
-    library's build time."""
+    library's build time. ``only`` = "attention" or "topk" builds those
+    kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.similarity_topk import kernel as tk
+    from repro_torch.kernels.ssd_scan import kernel as sk
 
     def timed(lib):
         t0 = time.perf_counter()
         lib.build()
         return lib.src.name, time.perf_counter() - t0
 
-    libs = [fk.LIB, dk.LIB]
-    if not attention_only:
-        from repro_torch.kernels.similarity_topk import kernel as tk
-        from repro_torch.kernels.ssd_scan import kernel as sk
-
-        libs = [tk.LIB, *libs, sk.LIB]
+    libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB]}.get(
+        only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         done = list(ex.map(timed, libs))
@@ -597,7 +670,8 @@ def b2_times(kern, dev, gpu, Q=1):
     bound, by = _bound(db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * Q * TOPK * 4,
                        2 * Q * L2_CAP * DIM, FP32_FLOP_PER_S)
     print(f"time: similarity_topk (B2, lanes kernel at L=1) N={L2_CAP} D={DIM} Q={Q} "
-          f"k={TOPK} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
+          f"k={TOPK} route={route_of(kern, Q, DIM, TOPK)} "
+          f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
           f"library_ms={l_ms:.4f} "
           f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
@@ -1078,7 +1152,8 @@ def main_path(dev, gpu, backend, ssm_backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2
     q = torch.as_tensor(dec.vecs, device=dev)
     s, i = ops._similarity_topk_lanes(bank.buf, bank.valid, q, k=TOPK, metric=bank.metrics,
                                       prenormalized=bank.prenormalized,
-                                      topk=kern.similarity_topk_lanes_plain)
+                                      topk=kern.similarity_topk_lanes_plain,
+                                      lane_rows=tuple(bank.capacities))
     qmask = torch.ones(len(texts), dtype=torch.bool, device=dev)
     thr_d = torch.as_tensor(thr, dtype=torch.float32, device=dev)
     winner, hit, gen_m, _ = read_path.make_decide(specs, TOPK, bank.device)(s, thr_d, qmask)
@@ -1088,6 +1163,13 @@ def main_path(dev, gpu, backend, ssm_backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2
     s_err = float(np.abs(dec.scores - s.cpu().numpy()).max())
     print(f"decide: kernel-vs-plain decisions identical={same} "
           f"winner={dec.winner.tolist()} score_max_abs_err={s_err:.3e}")
+    if not same:  # where they part: each differing read's best scores and thresholds
+        s_plain, w_plain = s.cpu().numpy(), winner.cpu().numpy()
+        for b in np.flatnonzero((dec.winner != w_plain) | (dec.hit != hit.cpu().numpy()).any(-1)
+                                | (dec.generative != gen_m.cpu().numpy()).any(-1)):
+            print(f"decide:   read {b}: winner kernel={dec.winner[b]} plain={w_plain[b]} "
+                  f"best kernel={dec.scores[b, :, 0].tolist()} plain={s_plain[b, :, 0].tolist()} "
+                  f"thresholds={thr[b].tolist()}")
     if not same or s_err > TOL:
         raise AssertionError("the read's decisions differ between kernel and plain version")
     if not (np.isfinite(dec.vecs).all() and dec.vecs.shape == (8, dim)):
@@ -1141,7 +1223,7 @@ def profile_read(read, prepare, gpu, reads=10):
             by_name[e.name] = (ms + e.device_time_total / 1e3 / reads, n + 1)
     groups = {"similarity_topk": 0.0, "matmul": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
-        if "topk_tiles" in name or "merge_lanes" in name:
+        if any(t in name for t in ("topk_stream", "topk_tiles", "merge_lanes")):
             groups["similarity_topk"] += ms
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "sm90")):
             groups["matmul"] += ms
@@ -1167,6 +1249,9 @@ def main() -> int:
     ap.add_argument("--attention-only", action="store_true",
                     help="only B3 and B4: build them, hold them against their plain "
                          "versions, time them and the long-engine line, then stop")
+    ap.add_argument("--topk-only", action="store_true",
+                    help="only B1 and B2: build them, hold them against their plain "
+                         "versions, time them, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -1191,7 +1276,7 @@ def main() -> int:
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
-    build_all(args.attention_only)
+    build_all("attention" if args.attention_only else "topk" if args.topk_only else None)
     if args.attention_only:
         from repro_torch.configs import get_config
         from repro_torch.models import transformer as T
@@ -1206,14 +1291,28 @@ def main() -> int:
           f"default_block_n={ops.default_block_n()}")
     if kern.tile_rows() != ops.default_block_n():
         raise AssertionError("the built kernel's tile differs from its source")
+    if has_lane_rows(kern):
+        lib = kern.LIB.load()
+        for Q, D, k, ns in ((1, DIM, TOPK, 4), (8, DIM, 32, 2), (16, DIM, 4, 3), (3, 68, 8, 2)):
+            if lib.similarity_topk_lanes_stream_smem(Q, D, k, ns) != kern.stream_smem(Q, D, k, ns):
+                raise AssertionError("kernel.stream_smem differs from the CUDA source's layout")
+        plan = kern.split_plan((L1_CAP, L2_CAP))
+        print(f"build: similarity_topk_lanes stream route Q<={kern.SMALL_Q} k<={kern.KMAX}, "
+              f"main-path grid={plan[1][-1]} blocks (lane rows per block {plan[0]}), "
+              f"ring stages at Q=1/8/16: {[kern.stream_stages(Q, DIM, TOPK) for Q in (1, 8, 16)]}")
 
     errs = {"similarity_topk_lanes": kernel_checks(kern, dev),
             "similarity_topk": b2_checks(kern, dev)}
+    if args.topk_only:
+        kernel_times(kern, dev, gpu)
+        b2_times(kern, dev, gpu)
+        print(f"topk-only: done [{gpu}]")
+        return 0
     attn_errs = attention_checks(dev)
     errs["flash_attention"], errs["decode_attention"] = attn_errs["flash"], attn_errs["decode"]
     errs["ssd_scan"] = ssd_checks(dev)
     b1_times = kernel_times(kern, dev, gpu)
-    times = {"similarity_topk_lanes": b1_times[8],  # the service's max_batch of 8
+    times = {"similarity_topk_lanes": b1_times["main-path", 8],  # the fused read at max_batch 8
              "similarity_topk": b2_times(kern, dev, gpu)}
     attn_times = attention_times(dev, gpu)
     times["flash_attention"] = attn_times[PROMPT]  # the engine's prefill

@@ -166,6 +166,7 @@ def _search(bank: StoreBank, q, valid, K: int, use_kernel: bool):
         return _similarity_topk_lanes(
             bank.buf, valid, q, k=K, metric=bank.metrics,
             prenormalized=True if mixed else bank.prenormalized,
+            lane_rows=tuple(bank.capacities),  # rows past a lane's capacity stay unread
         )
     return fused_search_body(bank.buf, valid, q, K, bank.metrics, bank.prenorm)
 

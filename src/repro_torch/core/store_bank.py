@@ -571,9 +571,11 @@ class StoreBank:
         if self.use_pallas and metric in _KERNEL_METRICS:
             from repro_torch.kernels.similarity_topk.ops import similarity_topk
 
-            # one lane is one store: the single-store form (B2), [Q, k]
+            # one lane is one store: the single-store form (B2), [Q, k], over
+            # the lane's own rows (contiguous views; no row past its
+            # capacity is ever valid, so none is read)
             s, i = similarity_topk(
-                self.buf[lane], self.valid[lane], q, k=k, metric=metric,
+                self.lane_buf(lane), self.lane_valid(lane), q, k=k, metric=metric,
                 prenormalized=self.prenorm[lane],
             )
         else:
@@ -608,6 +610,7 @@ class StoreBank:
             s, i = similarity_topk_lanes(
                 self.buf, self.valid, q, k=k, metric=self.metrics,
                 prenormalized=True if mixed else self.prenormalized,
+                lane_rows=tuple(self.capacities),
             )
         else:
             s, i = fused_search_body(self.buf, self.valid, q, k, self.metrics, self.prenorm)

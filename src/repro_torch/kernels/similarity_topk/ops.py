@@ -20,7 +20,7 @@ Each call counts a host-level dispatch (``dispatch_count`` /
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,11 +54,12 @@ def reset_single_store_launches() -> None:
 
 
 def default_block_n() -> int:
-    """The kernel's row tile: ``TN`` in the CUDA source, read without
+    """The tile kernel's row tile: ``TN`` in the CUDA source, read without
     building anything (``kernel.tile_rows()`` reports the built library's
     value). It is a compile-time constant of the kernel, so unlike the TPU
     wrapper there is no environment override; the kernel masks the ragged
-    edge of a lane whose N is not a multiple of it."""
+    edge of a lane whose N is not a multiple of it. The streaming kernel
+    (small Q) splits rows by ``kernel.split_plan`` instead."""
     for line in _kernel._CSRC.read_text().splitlines():
         if line.startswith("constexpr int TN ="):
             return int(line.split("=")[1].split(";")[0])
@@ -70,7 +71,8 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
-                           prenormalized: bool, topk: TopK = None):
+                           prenormalized: bool, topk: TopK = None,
+                           lane_rows: Optional[Sequence[int]] = None):
     """db [L, N, D] f32, valid [L, N] bool, q [Q, D] -> ([Q, L, k], [Q, L, k]).
 
     Lane indices are lane-local (0..N); candidates are never merged across
@@ -81,7 +83,11 @@ def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
     kernel. ``topk`` is the per-lane top-k core, by default
     ``kernel.similarity_topk_lanes_blocks`` (device-dispatched); a caller
     may pass ``kernel.similarity_topk_lanes_plain`` to recompute a result
-    with the plain version on the same tensors."""
+    with the plain version on the same tensors. ``lane_rows`` (one count per
+    lane, like ``prenormalized`` an argument the reference lacks) says how
+    many rows each lane holds: rows at or past it count as invalid and the
+    kernel never reads them. Callers pass the bank's capacities, past which
+    no row is ever valid, so results do not change."""
     L = db.shape[0]
     metrics = tuple(metric) if len(metric) > 1 else tuple(metric) * L
     bad = [m for m in metrics if m not in ("cosine", "dot")]
@@ -100,7 +106,8 @@ def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
             db = _normalize(db.to(torch.float32))
         q = _normalize(q)
     topk = _kernel.similarity_topk_lanes_blocks if topk is None else topk
-    s, i = topk(db.contiguous(), valid.contiguous(), q.contiguous(), k)  # [L, Q, k]
+    s, i = topk(db.contiguous(), valid.contiguous(), q.contiguous(), k,
+                lane_rows=lane_rows)  # [L, Q, k]
     s = torch.where(s <= -1.0e38, torch.full_like(s, float("-inf")), s)
     s = s.transpose(0, 1)  # [Q, L, k]
     i = i.transpose(0, 1)
@@ -112,14 +119,16 @@ def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
 
 def similarity_topk_lanes(db, valid, q, *, k: int,
                           metric: Union[str, Tuple[str, ...]] = "cosine",
-                          prenormalized: bool = False):
+                          prenormalized: bool = False,
+                          lane_rows: Optional[Sequence[int]] = None):
     """Fused multi-lane lookup: db [L, N, D], valid [L, N], q [Q, D] ->
     (scores [Q, L, k], lane-local idx [Q, L, k]) in ONE kernel launch.
-    ``metric`` may be one name for every lane or a per-lane tuple."""
+    ``metric`` may be one name for every lane or a per-lane tuple;
+    ``lane_rows`` as in ``_similarity_topk_lanes``."""
     record_dispatch()
     metrics = (metric,) if isinstance(metric, str) else tuple(metric)
     return _similarity_topk_lanes(db, valid, q, k=k, metric=metrics,
-                                  prenormalized=prenormalized)
+                                  prenormalized=prenormalized, lane_rows=lane_rows)
 
 
 def similarity_topk(db, valid, q, *, k: int, metric: str = "cosine",

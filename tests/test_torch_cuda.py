@@ -61,10 +61,10 @@ def _inputs(L, N, D, Q, seed, dev, p_valid=0.9):
     return tuple(torch.from_numpy(a).to(dev) for a in (db, valid, q))
 
 
-def _assert_kernel_matches_plain(db, valid, q, k):
+def _assert_kernel_matches_plain(db, valid, q, k, lane_rows=None):
     before = tk.launches
-    s1, i1 = tk.similarity_topk_lanes_cuda(db, valid, q, k)
-    s2, i2 = tk.similarity_topk_lanes_plain(db, valid, q, k)
+    s1, i1 = tk.similarity_topk_lanes_cuda(db, valid, q, k, lane_rows)
+    s2, i2 = tk.similarity_topk_lanes_plain(db, valid, q, k, lane_rows)
     torch.cuda.synchronize()
     assert tk.launches == before + 1
     s1, i1, s2, i2 = (t.cpu().numpy() for t in (s1, i1, s2, i2))
@@ -107,7 +107,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         tk.similarity_topk_lanes_cuda(db, valid, q.t().contiguous().t(), 4)
     with pytest.raises(ValueError, match="devices differ"):
         tk.similarity_topk_lanes_cuda(db, valid, q.cpu(), 4)
+    # lane_rows past the bank, missing a lane, or 0
+    for rows in ((257, 256), (256,), (0, 256)):
+        with pytest.raises(ValueError, match="lane_rows"):
+            tk.similarity_topk_lanes_cuda(db, valid, q, 4, rows)
+    # storage 4 bytes off a 16-byte boundary: no vector loads, no bulk copies
+    flat = torch.empty(db.numel() + 4, device=dev)
+    shifted = flat[1:1 + db.numel()].view(db.shape)
+    shifted.copy_(db)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.similarity_topk_lanes_cuda(shifted, valid, q, 4)
+    with pytest.raises(ValueError, match="lanes"):
+        many = torch.zeros((tk.MAX_LANES + 1, 16, 32), device=dev)
+        tk.similarity_topk_lanes_cuda(many, torch.ones(many.shape[:2], dtype=torch.bool,
+                                                       device=dev), q, 4)
+    with pytest.raises(ValueError, match="tile kernel"):
+        big = torch.zeros((1, 300, 32), device=dev)
+        tk.similarity_topk_lanes_cuda(big, torch.ones((1, 300), dtype=torch.bool, device=dev),
+                                      q, 129)
     assert tk.launches == before  # a refused call launches nothing
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, tk.KMAX, tk.KMAX + 1])
+@pytest.mark.parametrize("Q", [1, 2, 3, 4, 8, 16, 17, 64])
+def test_kernel_matches_plain_on_both_routes(Q, k, dev):
+    """Both sides of the small-Q threshold (the streaming kernel at
+    Q <= SMALL_Q and k <= KMAX, the tile kernel above) at the bank's width,
+    with the main path's lane_rows form: lane 0 holds fewer rows than N and
+    its rows past them are marked valid, which the kernel must not read."""
+    db, valid, q = _inputs(2, 4096, 768, Q, Q * 100 + k, dev)
+    _assert_kernel_matches_plain(db, valid, q, k, lane_rows=(1000, 4096))
+    _assert_kernel_matches_plain(db, valid, q, k)
+
+
+def test_stream_kernel_ties_across_blocks_invalid_lane_and_few_rows(dev):
+    """Exact ties that fall in different blocks and warps (each dyadic row
+    repeated one block and one warp stage apart), an all-invalid lane, a
+    lane with fewer valid rows than k, and a lane holding fewer rows than k,
+    all on the streaming route."""
+    L, N, D, Q, k = 4, 4096, 64, 5, 8
+    per = tk.split_plan((N,) * L)[0][0]
+    rng = np.random.default_rng(12)
+    db = rng.integers(-4, 5, size=(L, N, D)).astype(np.float32) / 4
+    for r in range(0, 64):  # rows r, r + 16 and r + per hold the same vector
+        db[:, r + 16] = db[:, r]
+        db[:, r + per] = db[:, r]
+    valid = rng.random((L, N)) < 0.9
+    valid[1] = False  # an all-invalid lane
+    valid[2] = False
+    valid[2, [3, 3 + per, 2000]] = True  # fewer valid rows than k
+    valid[3, :5] = True
+    q = rng.integers(-4, 5, size=(Q, D)).astype(np.float32) / 4
+    db, valid, q = (torch.from_numpy(a).to(dev) for a in (db, valid, q))
+    assert tk.route(Q, D, k) == "stream"
+    for rows in (None, (N, N, N, 5)):  # lane 3 holding 5 rows, fewer than k
+        s, i = _assert_kernel_matches_plain(db, valid, q, k, lane_rows=rows)
+        assert (s[1] == tk.NEG).all() and (s[2, :, 3:] == tk.NEG).all()
+        tied = s[0, :, 1:] == s[0, :, :-1]
+        assert tied.any() and (i[0, :, 1:][tied] > i[0, :, :-1][tied]).all()
+    assert (s[3, :, 5:] == tk.NEG).all() and (i[3, :, 5:] == np.arange(5, 8)).all()
 
 
 def test_read_path_through_kernel_matches_plain_search(dev):

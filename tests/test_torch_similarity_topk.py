@@ -223,3 +223,104 @@ def test_store_search_reads_through_the_single_store_form(metric):
     s, _ = tops.similarity_topk(torch.from_numpy(db[0]), torch.ones(200, dtype=torch.bool),
                                 torch.from_numpy(q), k=5, metric=metric)
     np.testing.assert_allclose(s.numpy(), [[s for s, _ in g] for g in got], **TOL)
+
+
+LANE_ROWS_CASES = [
+    # (caps, N, D, Q, k, metric): a bank of width N, lane l holding caps[l] rows
+    ((16, 64), 64, 32, 3, 4, "cosine"),
+    ((100, 700, 256), 700, 128, 8, 5, "dot"),
+    ((3, 40), 40, 16, 2, 6, "dot"),  # lane 0 holds fewer rows than k
+    ((1, 128), 128, 64, 1, 1, "cosine"),
+]
+
+
+@pytest.mark.parametrize("case", LANE_ROWS_CASES)
+def test_lane_rows_match_jax_reference(case):
+    """``_similarity_topk_lanes(..., lane_rows=caps)`` over a bank whose rows
+    past each lane's capacity are invalid (the StoreBank invariant) gives the
+    reference's ``_similarity_topk_lanes`` result, which reads every row."""
+    from repro.kernels.similarity_topk.ops import _similarity_topk_lanes as jax_core
+
+    caps, N, D, Q, k, metric = case
+    db, valid, q = _inputs(len(caps), N, D, Q, seed=sum(caps))
+    for lane, cap in enumerate(caps):
+        valid[lane, cap:] = False
+    s, i = tops._similarity_topk_lanes(
+        torch.from_numpy(db), torch.from_numpy(valid), torch.from_numpy(q), k=k,
+        metric=(metric,), prenormalized=False, lane_rows=caps)
+    sj, ij = jax_core(jnp.asarray(db), jnp.asarray(valid), jnp.asarray(q), k=k,
+                      metric=(metric,), block_n=None, interpret=True, prenormalized=False)
+    _assert_match(s.numpy(), i.numpy(), sj, ij)
+    live = np.isfinite(s.numpy())  # [Q, L, k]
+    held = np.broadcast_to(np.asarray(caps)[None, :, None], live.shape)
+    assert (i.numpy()[live] < held[live]).all()
+
+
+def test_plain_ignores_rows_past_lane_rows():
+    """Rows at or past ``lane_rows[l]`` count as invalid even where ``valid``
+    is True: the plain version equals itself on a mask that drops them, tail
+    indices included, and no live candidate lies past a lane's rows."""
+    caps = (5, 90, 200)
+    db, valid, q = _inputs(3, 200, 32, 4, seed=31, p_valid=1.0)
+    args = (torch.from_numpy(db), torch.from_numpy(valid), torch.from_numpy(q), 8)
+    s, i = tk.similarity_topk_lanes_plain(*args, lane_rows=caps)
+    masked = valid.copy()
+    for lane, cap in enumerate(caps):
+        masked[lane, cap:] = False
+    s2, i2 = tk.similarity_topk_lanes_plain(args[0], torch.from_numpy(masked), args[2], 8)
+    assert torch.equal(s, s2) and torch.equal(i, i2)
+    # lane 0 holds 5 rows: 5 live candidates, then NEG at rows 5, 6, 7
+    assert (s[0, :, :5] > tk.NEG).all() and (s[0, :, 5:] == tk.NEG).all()
+    assert (i[0, :, 5:] == torch.tensor([5, 6, 7], dtype=torch.int32)).all()
+    live = s > tk.NEG
+    assert (i[live] < torch.tensor(caps)[:, None, None].expand_as(i)[live]).all()
+    # the same through the device-dispatching wrapper on a CPU tensor
+    s3, i3 = tk.similarity_topk_lanes_blocks(*args, lane_rows=caps)
+    assert torch.equal(s, s3) and torch.equal(i, i3)
+
+
+@pytest.mark.parametrize("lane_rows", [(0, 200, 200), (201, 1, 1), (10, 10)])
+def test_lane_rows_outside_the_bank_are_refused(lane_rows):
+    db, valid, q = _inputs(3, 200, 32, 2, seed=32)
+    with pytest.raises(ValueError, match="lane_rows"):
+        tk.similarity_topk_lanes_plain(torch.from_numpy(db), torch.from_numpy(valid),
+                                       torch.from_numpy(q), 4, lane_rows=lane_rows)
+
+
+@pytest.mark.parametrize("lane_rows", [
+    (16384, 131072),  # the main path's bank: the L1 lane, then the L2 lane
+    (131072, 131072),
+    (131072,),  # B2's single store
+    (700, 700, 700),
+    (1, 129, 4097),
+])
+def test_split_plan_covers_each_lane_with_no_empty_range(lane_rows):
+    per, first = tk.split_plan(lane_rows)
+    assert len(per) == len(lane_rows) and len(first) == len(lane_rows) + 1 and first[0] == 0
+    for lane, rows in enumerate(lane_rows):
+        nb = first[lane + 1] - first[lane]
+        starts = [b * per[lane] for b in range(nb)]
+        ends = [min(rows, s + per[lane]) for s in starts]
+        assert nb >= 1 and per[lane] % tk.ROW_ALIGN == 0
+        assert all(e > s for s, e in zip(starts, ends))  # no empty range
+        assert starts[0] == 0 and ends[-1] == rows
+        assert all(e == s for e, s in zip(ends, starts[1:]))  # contiguous
+    if sum(lane_rows) >= 2 * 131072:
+        assert abs(first[-1] - tk.WAVES * tk.SMS) <= 4
+    if lane_rows == (16384, 131072):
+        # about one block per SM, shared by the rows each lane holds
+        assert abs(first[-1] - 132) <= 4
+        assert 13 <= first[1] <= 17
+
+
+def test_route_follows_q_k_and_shared_memory():
+    for Q in (1, 2, 3, 4, 8, 16):
+        assert tk.route(Q, 768, 4) == "stream"
+        ns = tk.stream_stages(Q, 768, 4)
+        assert ns in tk.STAGES and tk.stream_smem(Q, 768, 4, ns) <= tk.SMEM_LIMIT
+    assert tk.stream_rows(8) == 4 and tk.stream_rows(9) == 2
+    assert tk.list_len(4) == 6 and tk.list_len(tk.KMAX) == tk.KMAX  # k and a margin
+    assert tk.route(16, 768, tk.KMAX) == "stream"
+    assert tk.route(17, 768, 4) == "tile" and tk.route(64, 768, 4) == "tile"
+    assert tk.route(1, 768, tk.KMAX + 1) == "tile"  # larger k: the tile kernel
+    assert tk.route(1, 16384, 4) == "tile"  # rows too wide for its ring

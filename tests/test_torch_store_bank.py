@@ -203,3 +203,74 @@ def test_adopt_stacks_lanes_on_one_device():
     assert a._bank is bank and b._lane == 1
     assert bank.valid.sum().item() == 6
     assert a.search(_vecs(1, 5)[0], k=1)[0][1].query == "x"
+
+
+def _assert_nothing_valid_past_capacity(bank):
+    for lane, cap in enumerate(bank.capacities):
+        assert not bank.valid[lane, cap:].any(), (lane, cap)
+
+
+def test_no_row_past_a_lane_capacity_is_ever_valid(tmp_path):
+    """The search reads only [0, capacity) of each lane (``lane_rows``), which
+    is exact because no insert, free, adopt or snapshot load sets ``valid``
+    past a lane's capacity: a bank of capacities (16, 64) through inserts
+    that wrap capacity, slot frees, an adoption and a snapshot round trip."""
+    a = TStore(DIM, capacity=16, device="cpu")
+    b = TStore(DIM, capacity=64, metric="dot", device="cpu")
+    a.add_batch(_vecs(40, 11), [f"a{i}" for i in range(40)], [f"A{i}" for i in range(40)])
+    b.add_batch(_vecs(50, 12), [f"b{i}" for i in range(50)], [f"B{i}" for i in range(50)])
+    bank = tsb.StoreBank.adopt([a, b])
+    assert bank.capacities == [16, 64] and bank.buf.shape == (2, 64, DIM)
+    _assert_nothing_valid_past_capacity(bank)
+    keys = a.add_batch(_vecs(30, 13), [f"c{i}" for i in range(30)], [f"C{i}" for i in range(30)])
+    b.add_batch(_vecs(20, 14), [f"d{i}" for i in range(20)], [f"D{i}" for i in range(20)])
+    _assert_nothing_valid_past_capacity(bank)
+    assert int(bank.valid[0].sum()) == 16 and int(bank.valid[1].sum()) == 64
+    for key in keys[-3:]:
+        a.remove(key)
+    bank.free_slots([1, 1], [0, 63])
+    _assert_nothing_valid_past_capacity(bank)
+    a.add_batch(_vecs(5, 15), list("vwxyz"), list("VWXYZ"))
+    _assert_nothing_valid_past_capacity(bank)
+    a.save(str(tmp_path / "a"))
+    a2 = TStore.load(str(tmp_path / "a"), device="cpu")
+    assert a2.capacity == 16 and not a2._bank.valid[0, 16:].any()
+    bank2 = tsb.StoreBank.adopt([a2, b])
+    _assert_nothing_valid_past_capacity(bank2)
+    assert torch.equal(bank2.valid[0, :16], bank.valid[0, :16])
+
+
+def test_searches_hand_the_kernel_each_lane_capacity(monkeypatch):
+    """``read_path._search`` and ``StoreBank.search_lanes`` pass the bank's
+    capacities as ``lane_rows``; ``search_lane`` passes the lane's own
+    [capacity, D] rows. A ``topk=`` recorder sees every call."""
+    from repro_torch.core import read_path as trp
+    from repro_torch.kernels.similarity_topk import kernel as tk
+    from repro_torch.kernels.similarity_topk import ops as tops
+
+    seen = []
+
+    def recorder(db, valid, q, k, lane_rows=None):
+        seen.append((tuple(db.shape), lane_rows))
+        return tk.similarity_topk_lanes_plain(db, valid, q, k, lane_rows)
+
+    core = tops._similarity_topk_lanes
+    monkeypatch.setattr(tops, "_similarity_topk_lanes",
+                        lambda *a, **kw: core(*a, topk=recorder, **kw))
+    a = TStore(DIM, capacity=16, use_pallas=True, device="cpu")
+    b = TStore(DIM, capacity=64, use_pallas=True, device="cpu")
+    a.add_batch(_vecs(10, 21), [f"a{i}" for i in range(10)], [f"A{i}" for i in range(10)])
+    b.add_batch(_vecs(30, 22), [f"b{i}" for i in range(30)], [f"B{i}" for i in range(30)])
+    bank = tsb.StoreBank.adopt([a, b])
+    q = _vecs(3, 23)
+    s_plain, i_plain = tsb.fused_search_body(bank.buf, bank.valid, torch.from_numpy(q), 4,
+                                             bank.metrics, bank.prenorm)
+    s, i = bank.search_lanes(q, 4)
+    assert seen[-1] == ((2, 64, DIM), (16, 64))
+    np.testing.assert_allclose(s, s_plain.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_array_equal(i, i_plain.numpy())
+    trp._search(bank, torch.from_numpy(q), bank.valid, 4, use_kernel=True)
+    assert seen[-1] == ((2, 64, DIM), (16, 64))
+    got = a.search_batch(q, k=4)
+    assert seen[-1] == ((1, 16, DIM), None)  # the single-store form: the lane's 16 rows
+    assert [len(g) for g in got] == [4, 4, 4]
