@@ -3,7 +3,7 @@
 and, behind it, the miss path through the LLM serving engines (a dense and
 an SSM model).
 
-    python3 chip_smoke.py [--profile] [--attention-only | --topk-only] [--src DIR]
+    python3 chip_smoke.py [--profile] [--attention-only | --topk-only | --ssd-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -30,10 +30,12 @@ grid), ``check:`` per kernel-vs-plain case (B1 with its route, streaming
 or tile, incl. ``lane_rows`` below N, Q 1..64 across the small-Q threshold
 and every k class; B2 = B1 at L = 1, B3, B4, B5), ``time:`` lines (kernel / plain /
 library device times from a profiler trace, or from CUDA events after a
-``timer:`` line where the traces came back empty, the kernel's host rate, and the
-bound, at the main-path shapes and one longer shape each, with the card and
-its power limit; B1 at Q 1/2/4/8/64 on the full bank and on the main
-path's lane_rows, with its route; B3's with its splits and grid), ``model:`` per model
+``timer:`` line where every trace came back empty or below the bound, the
+kernel's host rate, and the bound, at the main-path shapes and one longer
+shape each, with the card and its power limit; B1 at Q 1/2/4/8/64 on the
+full bank and on the main path's lane_rows, with its route; B3's with its
+splits and grid; B5's with its plan, CUDA kernels per call and both its
+bf16 and FP32 bounds), ``model:`` per model
 (full-width float32 model on the card against the CPU), per engine
 ``engine:`` lines (full-width bfloat16 engine: the kernels' launches per
 prefill and per decode step, counted before any timing loop, then prefill
@@ -41,7 +43,9 @@ and decode-step p50 and tokens/s) and ``profile: decode`` (one decode step's
 device time by kernel, kernels per step and busy share), after the qwen
 engine's an ``engine: qwen1.5-0.5b long`` line (its model calls with a
 [4, 8192] cache: a 2048-token prefill's and a decode step's p50 at
-pos = 8191, beside B4's and B3's device ms per call), ``fill:``,
+pos = 8191, beside B4's and B3's device ms per call), after the mamba2
+engine's an ``engine: mamba2-1.3b long`` line (a 2048-token prefill's p50
+and device ms, B5's device ms and kernels per call), ``fill:``,
 ``traffic:`` per replay (hits, generative hits, misses served by the
 engine, latency p50s and the 5x gate, launch counts), ``decide:`` (one
 read's decisions recomputed with the plain version), ``read:`` (p50 of one
@@ -53,7 +57,8 @@ kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``--profile`` adds ``profile:`` lines after ``read:``: one fused read's
 device time by kernel and the device's busy share. ``--attention-only``
 runs only B3 and B4 (build, checks, times, the long-engine line),
-``--topk-only`` only B1 and B2 (build, checks, times), and
+``--topk-only`` only B1 and B2 (build, checks, times), ``--ssd-only`` only
+B5 (build, checks, times, the long mamba2 prefill line), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -114,32 +119,48 @@ def host_ms(fn, iters=20, warmup=3, windows=5):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=20, warmup=3, traces=3):
-    """Device time of one call of ``fn``: the summed durations of the kernels
-    (copies and memsets included) it runs on the card, from a torch.profiler
-    trace of ``iters`` calls. Now and then CUPTI hands back a trace with no
-    device activity in it; such a trace is taken again, and after ``traces``
-    empty ones the time comes from ``queued_event_ms`` instead, with a
-    ``timer:`` line saying so."""
+def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3):
+    """Device time of one call of ``fn`` and the CUDA kernels it launches:
+    the summed durations of the kernels (copies and memsets included) it runs
+    on the card, from a torch.profiler trace of ``iters`` calls, the kernels
+    (copies and memsets not counted) per call, and the device ms of each
+    kernel of a call in launch order. Now and then CUPTI hands back a trace
+    with no device activity in it, or one that lost kernel records; a trace
+    that reads below ``bound_ms``, the least time the card could take for the
+    work, is taken again, and after ``traces`` such readings the time comes
+    from ``queued_event_ms`` instead (kernels per call and per kernel then
+    None), with a ``timer:`` line saying so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    read = []
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / iters
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = sum(e.device_time_total for e in events) / 1e3 / iters
+        if ms > 0 and ms >= bound_ms:
+            kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+            per = len(kernels) // iters
+            each = [sum(e.device_time_total for e in kernels[i::per]) / 1e3 / iters
+                    for i in range(per)] if per * iters == len(kernels) else None
+            return ms, len(kernels) / iters, each
+        read.append(ms)
     ms = queued_event_ms(fn, iters)
-    print(f"timer: {traces} profiler traces held no device time; CUDA events "
-          f"behind a spin kernel read {ms:.4f} ms")
-    return ms
+    print(f"timer: {traces} profiler traces read {', '.join(f'{t:.4f}' for t in read)} ms, "
+          f"none at or above the bound {bound_ms:.4f} ms; CUDA events behind a spin kernel "
+          f"read {ms:.4f} ms")
+    return ms, None, None
+
+
+def device_ms(fn, bound_ms, iters=20, warmup=3, traces=3):
+    """``device_trace``'s time alone."""
+    return device_trace(fn, bound_ms, iters, warmup, traces)[0]
 
 
 def queued_event_ms(fn, iters=20):
@@ -312,19 +333,20 @@ def kernel_times(kern, dev, gpu):
         rows = (caps,) if has_lane_rows(kern) and shape == "main-path" else ()
         for Q in (1, 2, 4, 8, 64):
             q = torch.randn((Q, DIM), generator=g, device=dev)
-            k_ms = device_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK, *rows))
+            held = sum(caps)  # rows inside capacity: what the read must stream
+            bound, by = _bound(held * D * 4 + held + q.numel() * 4 + 2 * L * Q * TOPK * 4,
+                               2 * Q * held * D, FP32_FLOP_PER_S)
+            k_ms = device_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK, *rows),
+                             bound)
             h_ms = host_ms(lambda: kern.similarity_topk_lanes_cuda(db, valid, q, TOPK, *rows))
             p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db, valid, q, TOPK, *rows),
-                             iters=5)
+                             bound, iters=5)
 
             def library():
                 s = torch.matmul(q.unsqueeze(0), db.transpose(1, 2))
                 return torch.topk(s.masked_fill(~valid[:, None, :], float("-inf")), TOPK, dim=-1)
 
-            l_ms = device_ms(library, iters=10)
-            held = sum(caps)  # rows inside capacity: what the read must stream
-            bound, by = _bound(held * D * 4 + held + q.numel() * 4 + 2 * L * Q * TOPK * 4,
-                               2 * Q * held * D, FP32_FLOP_PER_S)
+            l_ms = device_ms(library, bound, iters=10)
             out[shape, Q] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by=by)
             print(f"time: similarity_topk_lanes {shape} L=2 N={N} D={D} lane_rows={caps} "
@@ -337,8 +359,8 @@ def kernel_times(kern, dev, gpu):
 
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
-    library's build time. ``only`` = "attention" or "topk" builds those
-    kernels' libraries alone."""
+    library's build time. ``only`` = "attention", "topk" or "ssd" builds
+    those kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -351,7 +373,7 @@ def build_all(only=None):
         lib.build()
         return lib.src.name, time.perf_counter() - t0
 
-    libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB]}.get(
+    libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB]}.get(
         only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
@@ -515,13 +537,13 @@ def attention_times(dev, gpu):
     for S in (PROMPT, 2048):
         H, Dh = 16, 64
         q, k, v = (torch.randn((1, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "qkv")
-        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v))
-        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v))
-        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v), iters=5)
-        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
         pairs = S * (S + 1) // 2  # causal: the keys each query attends to
         bound, by = _bound(4 * S * H * Dh * 2, 4 * H * Dh * pairs, BF16_FLOP_PER_S)
+        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v), bound)
+        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v))
+        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v), bound, iters=5)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True), bound)
         out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
         print(f"time: flash_attention bf16 B=1 S={S} H={H} KH={H} Dh={Dh} causal "
               f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
@@ -533,14 +555,14 @@ def attention_times(dev, gpu):
         k, v = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "kv")
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
-        k_ms = device_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
-        h_ms = host_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
-        p_ms = device_ms(lambda: dk.decode_attention_plain(q, k, v, lengths), iters=5)
-        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))
         rows = sum(lens)  # live cache rows read
         bound, by = _bound(2 * rows * H * Dh * 2 + 2 * B * H * Dh * 2 + B * 4,
                            4 * H * Dh * rows, BF16_FLOP_PER_S)
+        k_ms = device_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths), bound)
+        h_ms = host_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
+        p_ms = device_ms(lambda: dk.decode_attention_plain(q, k, v, lengths), bound, iters=5)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask), bound)
         out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
         if hasattr(dk, "launch_grid"):
             (gx, ns), threads = dk.launch_grid(B, H, H, S, Dh, bf16)
@@ -559,6 +581,9 @@ SSD_CASES = [
     # B, S, H, G, P, N, chunk
     (1, PROMPT, 64, 1, 64, 128, 256),  # the engine's prefill (mamba2-1.3b, ngroups 1)
     (1, 300, 64, 1, 64, 128, 256),  # ragged: two chunks, the second partial
+    (1, 256, 64, 1, 64, 128, 256),  # S = L: the longest one-chunk (one-launch) call
+    (1, 257, 64, 1, 64, 128, 256),  # S = L + 1: the shortest of more chunks (three launches)
+    (1, 1, 64, 1, 64, 128, 256),  # S = 1
     (1, 2048, 64, 1, 64, 128, 256),  # the longer shape: 8 chunks
     (2, 100, 64, 64, 64, 128, 64),  # B/C per head (the reference's repeated layout)
     (2, 77, 16, 4, 32, 16, 32),  # groups of 4 heads, ragged, the smoke model's widths
@@ -618,8 +643,11 @@ def ssd_flops(S, H, G, P, N, L):
 def ssd_times(dev, gpu):
     """B5 in bfloat16 at the engine's prefill (S = 32) and at S = 2048, at
     mamba2-1.3b's widths with its B/C groups unrepeated: kernel and plain
-    device times, the kernel's host rate and the bound. No single PyTorch
-    call computes the scan: the library time is none."""
+    device times, the CUDA kernels per call, the kernel's host rate and two
+    bounds: ``bound_ms`` with the products at the bf16 tensor-core rate (the
+    kernel's) and ``fp32_bound_ms`` at the FP32 rate (the figure kept since
+    the first port, for continuity). No single PyTorch call computes the
+    scan: the library time is none."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as sk
@@ -629,19 +657,26 @@ def ssd_times(dev, gpu):
     H, G, P, N, chunk = 64, 1, 64, 128, 256
     for S in (PROMPT, 2048):
         args = x, Bm, Cm, dt, A, D = ssd_inputs(1, S, H, G, P, N, torch.bfloat16, g)
-        k_ms = device_ms(lambda: sk.ssd_scan_cuda(*args, chunk=chunk))
-        h_ms = host_ms(lambda: sk.ssd_scan_cuda(*args, chunk=chunk))
-        p_ms = device_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk), iters=5)
         nbytes = (2 * x.numel() * 2 + (Bm.numel() + Cm.numel()) * 2 + dt.numel() * 4
                   + 2 * H * 4 + H * P * N * 4)  # x in, y out, B/C, dt, A/D, state out
         flops = ssd_flops(S, H, G, P, N, min(chunk, S))
-        bound, by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        bound, by = _bound(nbytes, flops, BF16_FLOP_PER_S)
+        fp32_bound, fp32_by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        k_ms, kernels, each = device_trace(lambda: sk.ssd_scan_cuda(*args, chunk=chunk), bound)
+        h_ms = host_ms(lambda: sk.ssd_scan_cuda(*args, chunk=chunk))
+        p_ms = device_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk), bound, iters=5)
         out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bound, bound_by=by)
-        print(f"time: ssd_scan bf16 B=1 S={S} H={H} G={G} P={P} N={N} chunk={chunk} "
+        plan = sk.plan(1, S, H, P, N, chunk) if hasattr(sk, "plan") else None
+        route = "n/a" if plan is None else (
+            f"chunks={plan.chunks} warps={plan.warps} p_slice={plan.p_slice} "
+            f"blocks={plan.out_blocks}+{plan.state_blocks}")
+        print(f"time: ssd_scan bf16 B=1 S={S} H={H} G={G} P={P} N={N} chunk={chunk} {route} "
+              f"cuda_kernels_per_call={'n/a' if kernels is None else f'{kernels:g}'} "
+              f"kernel_ms_each={'n/a' if each is None else '/'.join(f'{t:.4f}' for t in each)} "
               f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms=none bound_ms={bound:.4f} ({by}) MB={nbytes / 1e6:.2f} "
-              f"GFLOP={flops / 1e9:.3f} "
-              f"share_of_bound={bound / k_ms:.3f} [{gpu}]")
+              f"library_ms=none bound_ms={bound:.4f} ({by}, bf16 tensor cores) "
+              f"fp32_bound_ms={fp32_bound:.4f} ({fp32_by}, FP32) MB={nbytes / 1e6:.2f} "
+              f"GFLOP={flops / 1e9:.3f} share_of_bound={bound / k_ms:.3f} [{gpu}]")
     return out
 
 
@@ -662,13 +697,13 @@ def b2_times(kern, dev, gpu, Q=1):
     def kernel():
         return ops.similarity_topk(db, valid, q, k=TOPK, metric="cosine", prenormalized=True)
 
-    k_ms, h_ms = device_ms(kernel), host_ms(kernel)
-    p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db[None], valid[None], q, TOPK),
-                     iters=5)
-    l_ms = device_ms(lambda: torch.topk((q @ db.T).masked_fill(~valid[None], float("-inf")),
-                                        TOPK, dim=-1), iters=10)
     bound, by = _bound(db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * Q * TOPK * 4,
                        2 * Q * L2_CAP * DIM, FP32_FLOP_PER_S)
+    k_ms, h_ms = device_ms(kernel, bound), host_ms(kernel)
+    p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db[None], valid[None], q, TOPK),
+                     bound, iters=5)
+    l_ms = device_ms(lambda: torch.topk((q @ db.T).masked_fill(~valid[None], float("-inf")),
+                                        TOPK, dim=-1), bound, iters=10)
     print(f"time: similarity_topk (B2, lanes kernel at L=1) N={L2_CAP} D={DIM} Q={Q} "
           f"k={TOPK} route={route_of(kern, Q, DIM, TOPK)} "
           f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
@@ -913,6 +948,56 @@ def engine_long_phase(dev, gpu, params, cfg, name=LLM):
           f"prefill_device_ms={per_call['prefill'][1]:.3f} "
           f"decode_step_device_ms={per_call['step'][1]:.3f} launches={got} [{gpu}]")
     del cache, slot, outs
+
+
+def ssm_long_phase(dev, gpu, params, cfg, name=SSM_LLM, n_trace=3):
+    """The full-width bfloat16 SSM model's prefill at a RAG length, as
+    ``engine_long_phase`` times the dense model's: the p50 of ``T.prefill``
+    on one ``LONG_PROMPT``-token prompt into a batch-1 cache, then, from a
+    profiler trace of ``n_trace`` prefills, the device ms per prefill and
+    B5's device ms and CUDA kernels per scan call (every kernel whose name
+    holds ``ssd_``). Launches, counted over the timed prefills: ssd_scan ==
+    layers x prefills."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    cache = T.init_cache(cfg, 1, LONG_PROMPT, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT)), device=dev)
+    calls, outs = [0], []
+
+    def prefill():
+        calls[0] += 1
+        outs.append(T.prefill(params, cfg, {"tokens": toks}, cache)[0])
+
+    torch.cuda.synchronize()
+    reset_engine_launches()
+    pre_ms = p50_ms(prefill, n=10)
+    torch.cuda.synchronize()
+    got = engine_launches()
+    want = expected_launches(cfg, calls[0], 0)
+    if got != want:
+        raise AssertionError(f"long SSM prefill kernel launches {got} != {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in outs):
+        raise AssertionError("the long SSM prefill's logits are not finite")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_trace):
+            prefill()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    scans = [e for e in events if "ssd_" in e.name]
+    per_scan = n_trace * cfg.num_layers
+    dev_ms = sum(e.device_time_total for e in events) / 1e3 / n_trace
+    scan_ms = sum(e.device_time_total for e in scans) / 1e3 / per_scan
+    print(f"engine: {name} long {cfg.dtype} prefill_S{LONG_PROMPT}_p50_ms={pre_ms:.3f} "
+          f"prefill_device_ms={dev_ms:.3f} ssd_device_ms_per_call={scan_ms:.4f} "
+          f"ssd_device_ms_per_prefill={scan_ms * cfg.num_layers:.3f} "
+          f"ssd_cuda_kernels_per_call={len(scans) / per_scan:g} "
+          f"launches={got} for prefills={calls[0]} [{gpu}]")
+    del cache, outs
 
 
 def profile_decode(decode, gpu, name, steps=5):
@@ -1252,6 +1337,9 @@ def main() -> int:
     ap.add_argument("--topk-only", action="store_true",
                     help="only B1 and B2: build them, hold them against their plain "
                          "versions, time them, then stop")
+    ap.add_argument("--ssd-only", action="store_true",
+                    help="only B5: build it, hold it against its plain version, time it "
+                         "and the long mamba2 prefill line, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -1276,7 +1364,18 @@ def main() -> int:
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
-    build_all("attention" if args.attention_only else "topk" if args.topk_only else None)
+    build_all("attention" if args.attention_only else "topk" if args.topk_only
+              else "ssd" if args.ssd_only else None)
+    if args.ssd_only:
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+
+        ssd_checks(dev)
+        ssd_times(dev, gpu)
+        cfg = get_config(SSM_LLM)
+        ssm_long_phase(dev, gpu, T.init_params(cfg, SEED, device=dev), cfg)
+        print(f"ssd-only: done [{gpu}]")
+        return 0
     if args.attention_only:
         from repro_torch.configs import get_config
         from repro_torch.models import transformer as T
@@ -1327,6 +1426,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # one prompt shorter than d_conv - 1: its conv tail is left-padded
     ssm_engine = engine_phase(dev, gpu, SSM_LLM, lengths=(2, 32, 12, 27, 9, 20))
+    ssm_long_phase(dev, gpu, ssm_engine.params, ssm_engine.cfg)
+    torch.cuda.empty_cache()
     launches, enc, queries = main_path(dev, gpu, ModelBackend(LLM, engine),
                                        ModelBackend(SSM_LLM, ssm_engine), profile=args.profile)
     torch.cuda.empty_cache()

@@ -18,11 +18,17 @@ rule): padded steps neither decay nor write the state.
 ``ssd_scan_cuda`` (the Hopper kernel built from ``csrc/ssd_scan.cu``), a CPU
 tensor takes ``ssd_scan_plain``. The source is compiled on first use by
 ``repro_torch.kernels.build``; nothing is built when the module is imported.
+
+The kernel runs the chunks in parallel (``plan`` says how): one launch when
+the sequence is one chunk, else three (each chunk's own state, the state
+passed across chunks in a float32 workspace, the outputs).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +47,81 @@ def reset_launches() -> None:
     launches = 0
 
 
+MIN_BLOCKS = 128  # output blocks one chunk should give at least (the card has 132 SMs)
+
+
+def state_cols(warps: int) -> int:
+    """State columns per state block (the source's ``state_cols``): 4 n8
+    tiles per warp."""
+    return 32 * warps
+
+
+class Plan(NamedTuple):
+    """How one call runs: ``chunks`` of ``L`` steps; ``warps`` of 16 query
+    rows per output block; P cut into slices of ``p_slice``; the grid of
+    output blocks (b, chunk, head) x ``q_tiles`` x slices and of state blocks
+    (b, chunk, head) x ``col_groups`` x slices; ``kernels`` CUDA launches;
+    ``workspace`` bytes (each chunk's own state and decay in float32, then
+    its starting state in bf16 parts)."""
+    L: int
+    chunks: int
+    warps: int
+    p_slice: int
+    q_tiles: int
+    col_groups: int
+    out_blocks: int
+    state_blocks: int
+    kernels: int
+    workspace: int
+
+
+def _parts(dtype: torch.dtype) -> tuple:
+    """bf16 parts of an input and of a float32 operand, as the kernel splits
+    them: float32 inputs 3 and 3, bfloat16 inputs 1 (exact) and 2."""
+    return (3, 3) if dtype == torch.float32 else (1, 2)
+
+
+def workspace_bytes(dtype: torch.dtype, B: int, S: int, H: int, P: int, N: int,
+                    L: int) -> int:
+    """The source's ``ssd_scan_workspace_bytes``: per (b, chunk, head) a
+    float32 [P, N] contribution and a decay, then (16-byte aligned) the
+    starting state as bf16 parts."""
+    bch = B * -(-S // L) * H
+    start = -(-(4 * bch * (P * N + 1)) // 16) * 16
+    return start + 2 * bch * _parts(dtype)[1] * P * N
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, S: int, H: int, P: int, N: int, chunk: int,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The kernel's launch plan, from the shapes alone. Output blocks take
+    16 query rows per warp, 2 warps when the chunk is at most 32 steps (the
+    engine's 32-token prefill) and 4 otherwise; P-slices are at most 64 wide,
+    and a single chunk cuts them down to 16 until at least ``MIN_BLOCKS``
+    output blocks run."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    warps = 2 if L <= 32 else 4
+    q_tiles = -(-L // (16 * warps))
+    col_groups = -(-(-(-N // 16) * 16) // state_cols(warps))
+    ps = min(P, 64)
+    while nc == 1 and ps > 16 and q_tiles * B * H * (P // ps) < MIN_BLOCKS:
+        ps //= 2
+    bch = B * nc * H
+    return Plan(L=L, chunks=nc, warps=warps, p_slice=ps, q_tiles=q_tiles,
+                col_groups=col_groups, out_blocks=bch * q_tiles * (P // ps),
+                state_blocks=bch * col_groups * (P // ps), kernels=1 if nc == 1 else 3,
+                workspace=0 if nc == 1 else workspace_bytes(dtype, B, S, H, P, N, L))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.ssd_scan_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
 
 
 LIB = CudaLibrary(Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", _declare)
@@ -113,9 +190,11 @@ def ssd_scan_cuda(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
     Raises, launching nothing, on what it does not take: another device
     than an sm_90 card, x/Bm/Cm not all float32 or all bfloat16, dt/A/D
     not float32, non-contiguous tensors, a head width outside
-    ``HEAD_DIMS`` (``ValueError``/``TypeError``), or a (P, N, chunk) whose
-    state and tiles do not fit shared memory (``RuntimeError``: the
-    launcher checks the device's limit before it launches)."""
+    ``HEAD_DIMS`` (``ValueError``/``TypeError``), or an (N, chunk) whose
+    tiles do not fit shared memory (``RuntimeError``: the launcher checks
+    the device's limit before it launches). Allocates y, the state and, for
+    more than one chunk, the workspace of ``plan``; one call counts one
+    launch whatever number of CUDA kernels its plan runs."""
     global launches
     _check(x, Bm, Cm, dt, A, D, chunk)
     require_sm90(x, "ssd_scan")
@@ -129,17 +208,20 @@ def ssd_scan_cuda(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
     G, N = Bm.shape[2], Bm.shape[3]
     if P not in HEAD_DIMS:
         raise ValueError(f"head width P={P} not in {HEAD_DIMS}")
-    L = min(chunk, S)
+    pl = plan(Bsz, S, H, P, N, chunk, x.dtype)
     lib = LIB.load()
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((pl.workspace,), dtype=torch.uint8, device=x.device)
+          if pl.workspace else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
-        y.data_ptr(), state.data_ptr(), Bsz, S, H, G, P, N, L, DTYPES[x.dtype], stream,
+        y.data_ptr(), state.data_ptr(), Bsz, S, H, G, P, N, pl.L, DTYPES[x.dtype], pl.warps,
+        pl.p_slice, None if ws is None else ws.data_ptr(), stream,
     )
     if err == ERR_SHARED_MEMORY:
-        raise RuntimeError(f"ssd_scan: the state and tiles of P={P} N={N} at chunk {L} "
+        raise RuntimeError(f"ssd_scan: the tiles of P={P} N={N} at chunk {pl.L} "
                            "do not fit the device's shared memory")
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")

@@ -471,6 +471,14 @@ SSD_CASES = [
     (2, 100, 8, 2, 32, 16, 32),  # groups of 4 heads, ragged
     (1, 70, 2, 1, 128, 64, 64),  # P = 128
     (1, 5, 4, 1, 16, 8, 64),  # shorter than one tile
+    (1, 256, 8, 1, 64, 128, 256),  # S = L: the last one-chunk (one-launch) shape
+    (1, 257, 8, 1, 64, 128, 256),  # S = L + 1: the first of more chunks (three launches)
+    (1, 1, 8, 1, 64, 128, 256),  # S = 1
+    (4, 32, 64, 1, 64, 128, 256),  # B = 4 at the engine's widths
+    (1, 300, 112, 2, 64, 64, 256),  # zamba2-7b's widths (H = 112, G = 2, N = 64)
+    (1, 2048, 64, 1, 64, 128, 256),  # the long prefill: 8 chunks, G = 1
+    (2, 200, 4, 2, 16, 8, 64),  # P = 16 and N = 8 over several chunks
+    (1, 90, 4, 1, 16, 24, 32),  # N = 24: not a multiple of the 16-wide k step
 ]
 
 
@@ -500,6 +508,30 @@ def test_ssd_kernel_matches_plain(case, dt_, dev):
     np.testing.assert_allclose(y1.float().cpu().numpy(), y2.float().cpu().numpy(),
                                atol=tol, rtol=tol)
     np.testing.assert_allclose(st1.cpu().numpy(), st2.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", [(1, 32, 64, 1, 64, 128, 256), (1, 600, 8, 2, 64, 128, 256),
+                                  (2, 200, 4, 2, 16, 8, 64)])
+@pytest.mark.parametrize("dt_", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_is_bitwise_repeatable(case, dt_, dev):
+    """No atomics, no order that depends on timing: two calls on the same
+    inputs give bitwise-equal y and state, one chunk or several."""
+    B, S, H, G, P, N, chunk = case
+    args = _ssd_inputs(B, S, H, G, P, N, dt_, dev, seed=11)
+    y1, st1 = sk.ssd_scan_cuda(*args, chunk=chunk)
+    y2, st2 = sk.ssd_scan_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+
+
+def test_ssd_kernel_workspace_matches_the_planner(dev):
+    """The source's workspace layout is the one ``kernel.workspace_bytes``
+    allocates."""
+    lib = sk.LIB.load()
+    for dt_, code in sk.DTYPES.items():
+        for B, S, H, P, N, L in ((1, 2048, 64, 64, 128, 256), (2, 300, 6, 16, 24, 64)):
+            assert lib.ssd_scan_workspace_bytes(code, B, S, H, P, N, L) == sk.workspace_bytes(
+                dt_, B, S, H, P, N, L)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
