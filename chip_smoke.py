@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card (an H100): the cache read path
-and, behind it, the miss path through the LLM serving engines (a dense and
-an SSM model).
+and, behind it, the miss path through the LLM serving engines (dense,
+vision, audio, SSM and hybrid models).
 
-    python3 chip_smoke.py [--profile] [--attention-only | --topk-only | --ssd-only] [--src DIR]
+    python3 chip_smoke.py [--profile]
+                          [--attention-only | --topk-only | --ssd-only | --arch-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -23,20 +24,31 @@ and then serves a burst of requests through the port's real entry points:
          4096, 64 SSM heads, bfloat16, random init from a seed; max_batch 4,
          max_seq 256), every prefill through the ssd_scan kernel (B5), decode
          the recurrent update in plain torch
+      -> or: ModelBackend -> ServingEngine(qwen3-8b, 36 x 4096, head width
+         128) or ServingEngine(zamba2-7b: 81 Mamba2 blocks through B5 and 13
+         applications of two shared attention blocks at 2 x 3584, head width
+         224, through B4 and B3), bfloat16, random init from a seed
+
+and, one model at a time, the other architectures of the port at full
+depth and width in bfloat16: gemma2-27b, gemma3-4b (head width 256) and
+llava-next-mistral-7b (text) behind ServingEngine, musicgen-large (4
+codebooks) through its own prefill and decode calls.
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 ``build:`` (nvcc seconds per library; B1's stream route and main-path
 grid), ``check:`` per kernel-vs-plain case (B1 with its route, streaming
 or tile, incl. ``lane_rows`` below N, Q 1..64 across the small-Q threshold
-and every k class; B2 = B1 at L = 1, B3, B4, B5), ``time:`` lines (kernel / plain /
+and every k class; B2 = B1 at L = 1, B3, B4 at every head width up to
+256, B5), ``time:`` lines (kernel / plain /
 library device times from a profiler trace, or from CUDA events after a
 ``timer:`` line where every trace came back empty or below the bound, the
 kernel's host rate, and the bound, at the main-path shapes and one longer
 shape each, with the card and its power limit; B1 at Q 1/2/4/8/64 on the
-full bank and on the main path's lane_rows, with its route; B3's with its
-splits and grid; B5's with its plan, CUDA kernels per call and both its
-bf16 and FP32 bounds), ``model:`` per model
-(full-width float32 model on the card against the CPU), per engine
+full bank and on the main path's lane_rows, with its route; B3 and B4 at
+each engine's shapes, B4's with its route, B3's with its splits and grid; B5's with its plan, CUDA kernels per call
+and both its bf16 and FP32 bounds), ``model:`` per model
+(full-width float32 model on the card against the CPU; the six
+architectures of this slice cut to one pattern cycle, the cut printed), per engine
 ``engine:`` lines (full-width bfloat16 engine: the kernels' launches per
 prefill and per decode step, counted before any timing loop, then prefill
 and decode-step p50 and tokens/s) and ``profile: decode`` (one decode step's
@@ -47,10 +59,15 @@ pos = 8191, beside B4's and B3's device ms per call), after the mamba2
 engine's an ``engine: mamba2-1.3b long`` line (a 2048-token prefill's p50
 and device ms, B5's device ms and kernels per call), ``fill:``,
 ``traffic:`` per replay (hits, generative hits, misses served by the
-engine, latency p50s and the 5x gate, launch counts), ``decide:`` (one
+engine, latency p50s and the 5x gate, launch counts: MockLLM, then the
+qwen1.5, mamba2, qwen3-8b and zamba2-7b engines, the last two built, with
+their ``engine:`` lines and zamba2's long line, just before their
+replays), ``decide:`` (one
 read's decisions recomputed with the plain version), ``read:`` (p50 of one
 fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
-lookups, each store search one call of ``ops.similarity_topk``),
+lookups, each store search one call of ``ops.similarity_topk``), the
+``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
+``engine: musicgen-large model-level``,
 ``kernels:`` (launches per kernel on the main path), then a JSON line of
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
@@ -58,7 +75,9 @@ kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 device time by kernel and the device's busy share. ``--attention-only``
 runs only B3 and B4 (build, checks, times, the long-engine line),
 ``--topk-only`` only B1 and B2 (build, checks, times), ``--ssd-only`` only
-B5 (build, checks, times, the long mamba2 prefill line), and
+B5 (build, checks, times, the long mamba2 prefill line), ``--arch-only``
+only this slice's lines (B3/B4 checks and times, the six ``model:``
+lines, the qwen3-8b and zamba2-7b replays, the other engines), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -439,8 +458,17 @@ FLASH_CASES = [
     (1, 128, 4, 4, 128, 0, 30.0, True),  # softcap, Dh 128
     (2, 77, 4, 2, 16, 7, 0.0, True),  # ragged + window, Dh 16 (the smoke model's)
     (1, 2048, 16, 16, 64, 0, 0.0, True),  # the longer shape
+    # the wide heads: gemma3-4b's (Dh 256, G = 2; its local layers' window of
+    # 1024 bites at S = 2048) and zamba2-7b's shared attention (Dh 224, G = 1)
+    (1, PROMPT, 8, 4, 256, 0, 0.0, True),
+    (1, 2048, 8, 4, 256, 1024, 0.0, True),
+    (1, PROMPT, 32, 32, 224, 0, 0.0, True),
+    (1, 2048, 32, 32, 224, 0, 0.0, True),
+    (2, 300, 8, 2, 224, 100, 50.0, True),  # G = 4, ragged, window + softcap
+    (2, 100, 8, 2, 256, 0, 30.0, False),  # G = 4, non-causal
 ] + [  # every head width, S around and past the tile: plain, window + softcap, non-causal
-    (1, S, 4, 2, Dh, w, cap, causal) for Dh in (16, 32, 64, 128) for S in (1, 63, 65, 100, 2048)
+    (1, S, 4, 2, Dh, w, cap, causal) for Dh in (16, 32, 64, 128, 224, 256)
+    for S in (1, 63, 65, 100, 2048)
     for w, cap, causal in ((0, 0.0, True), (48, 30.0, True), (0, 0.0, False))
 ]
 DECODE_CASES = [
@@ -458,20 +486,37 @@ DECODE_CASES = [
     (2, 4096, 8, 1, 64, 0, 30.0, (4096, 1234)),
     (2, 4096, 16, 1, 64, 0, 30.0, (4096, 1234)),
     (2, 4096, 6, 2, 64, 0, 30.0, (4096, 1234)),
+    # the wide heads at the engines' decode (zamba2-7b G = 1, gemma3-4b G = 2),
+    # G = 4 with a window and a softcap, an empty sequence, and the long caches
+    (ENGINE_BATCH, ENGINE_SEQ, 32, 32, 224, 0, 0.0, (1, 17, 256, 40)),
+    (ENGINE_BATCH, ENGINE_SEQ, 8, 4, 256, 0, 0.0, (1, 17, 256, 40)),
+    (2, 512, 8, 2, 224, 128, 50.0, (1, 512)),
+    (2, 512, 8, 2, 256, 100, 30.0, (1, 512)),
+    (2, 300, 8, 8, 256, 0, 0.0, (0, 299)),
+    (ENGINE_BATCH, 8192, 32, 32, 224, 0, 0.0, (8192,) * 4),
+    (ENGINE_BATCH, 8192, 8, 4, 256, 1024, 0.0, (8192, 1, 5000, 8191)),
 ]
 
 
-def decode_split_cases(dk, dtype, B=ENGINE_BATCH, S=8192, H=16, Dh=64):
+def decode_split_cases(dk, dtype, B=ENGINE_BATCH, S=8192, H=16, Dh=64, KH=None):
     """B3 over a split cache (the longer shape): lengths ending at a split
     boundary, one row before and after it; 0, 1 and S; a window that
     straddles a boundary. The boundary comes from the kernel's own plan
     (none for a tree without one)."""
+    KH = KH or H
     if not hasattr(dk, "split_plan"):
         return []
-    rows = dk.split_plan(B, H, S, Dh, dtype)[1]
-    return [(B, S, H, H, Dh, 0, 0.0, (rows, rows - 1, rows + 1, 2 * rows)),
-            (B, S, H, H, Dh, 0, 0.0, (0, 1, S, S - 1)),
-            (B, S, H, H, Dh, 700, 0.0, (rows + 300, 2 * rows + 10, S, 1))]
+    rows = dk.split_plan(B, KH, S, Dh, dtype)[1]
+    return [(B, S, H, KH, Dh, 0, 0.0, (rows, rows - 1, rows + 1, 2 * rows)),
+            (B, S, H, KH, Dh, 0, 0.0, (0, 1, S, S - 1)),
+            (B, S, H, KH, Dh, 700, 0.0, (rows + 300, 2 * rows + 10, S, 1))]
+
+
+def wide_split_cases(dk, dtype):
+    """``decode_split_cases`` at the wide heads: zamba2-7b's (Dh 224, G = 1)
+    and gemma3-4b's (Dh 256, G = 2)."""
+    return (decode_split_cases(dk, dtype, H=32, Dh=224)
+            + decode_split_cases(dk, dtype, H=8, KH=4, Dh=256))
 
 
 def attention_checks(dev):
@@ -484,9 +529,16 @@ def attention_checks(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {"flash": 0.0, "decode": 0.0}
+    skipped = sorted({c[4] for c in FLASH_CASES + DECODE_CASES
+                      if c[4] not in fk.HEAD_DIMS or c[4] not in dk.HEAD_DIMS})
+    if skipped:  # an older tree measured with --src
+        print(f"check: head widths {skipped} skipped: this tree's kernels build "
+              f"{fk.HEAD_DIMS} (B4) and {dk.HEAD_DIMS} (B3)")
     for dt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
         tag = "f32" if dt == torch.float32 else "bf16"
         for B, S, H, KH, Dh, w, cap, causal in FLASH_CASES:
+            if Dh not in fk.HEAD_DIMS:
+                continue
             q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(dt)
                        for n in (H, KH, KH))
             got = fk.flash_attention_cuda(q, k, v, causal=causal, window=w, softcap=cap)
@@ -496,7 +548,12 @@ def attention_checks(dev):
             err = close_check(name, got, want, tol)
             worst["flash"] = max(worst["flash"], err)
             worst[f"flash {tag}"] = max(worst.get(f"flash {tag}", 0.0), err)
-        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES + decode_split_cases(dk, dt):
+        split = decode_split_cases(dk, dt)
+        if 224 in dk.HEAD_DIMS:
+            split += wide_split_cases(dk, dt)
+        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES + split:
+            if Dh not in dk.HEAD_DIMS:
+                continue
             q = torch.randn((B, H, Dh), generator=g, device=dev).to(dt)
             k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt) for _ in "kv")
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -519,12 +576,58 @@ def _bound(nbytes, flops, flop_rate):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# B4 time lines: (model, B, S, H, KH, Dh, window); the first two are the
+# qwen1.5-0.5b engine's (the JSON line's), then the engines' of this slice
+FLASH_TIMES = [
+    (LLM, 1, PROMPT, 16, 16, 64, 0), (LLM, 1, 2048, 16, 16, 64, 0),
+    ("qwen3-8b", 1, PROMPT, 32, 8, 128, 0), ("qwen3-8b", 1, 2048, 32, 8, 128, 0),
+    ("gemma3-4b", 1, PROMPT, 8, 4, 256, 0), ("gemma3-4b", 1, 2048, 8, 4, 256, 0),
+    ("gemma3-4b local", 1, 2048, 8, 4, 256, 1024),
+    ("zamba2-7b", 1, PROMPT, 32, 32, 224, 0), ("zamba2-7b", 1, 2048, 32, 32, 224, 0),
+]
+# B3 time lines: (model, B, S, H, KH, Dh, window, lengths)
+ENGINE_LENS = (48, 40, 33, 1)  # the traffic's lengths at a decode step
+DECODE_TIMES = [
+    (LLM, ENGINE_BATCH, ENGINE_SEQ, 16, 16, 64, 0, ENGINE_LENS),
+    (LLM, ENGINE_BATCH, 8192, 16, 16, 64, 0, (8192,) * 4),
+    ("qwen3-8b", ENGINE_BATCH, ENGINE_SEQ, 32, 8, 128, 0, ENGINE_LENS),
+    ("qwen3-8b", ENGINE_BATCH, 8192, 32, 8, 128, 0, (8192,) * 4),
+    ("gemma3-4b", ENGINE_BATCH, ENGINE_SEQ, 8, 4, 256, 0, ENGINE_LENS),
+    ("gemma3-4b", ENGINE_BATCH, 8192, 8, 4, 256, 0, (8192,) * 4),
+    ("gemma3-4b local", ENGINE_BATCH, 8192, 8, 4, 256, 1024, (8192,) * 4),
+    ("zamba2-7b", ENGINE_BATCH, ENGINE_SEQ, 32, 32, 224, 0, ENGINE_LENS),
+    ("zamba2-7b", ENGINE_BATCH, 8192, 32, 32, 224, 0, (8192,) * 4),
+]
+
+
+def flash_bound(B, S, H, KH, Dh, window):
+    """The card's least time for causal prefill attention: q, k, v read once
+    and o written once, against 4 Dh FLOP per (query, key) pair a query
+    attends to (the causal pairs, cut to the window)."""
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    return _bound(2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh),
+                  4 * B * H * Dh * pairs, BF16_FLOP_PER_S)
+
+
+def decode_bound(B, H, KH, Dh, window, lens):
+    """The card's least time for one decode step's attention: the live K/V
+    rows (inside the window) read once, q read and o written once, the
+    lengths, against 4 Dh FLOP per (query head, live row)."""
+    rows = sum(min(n, window) if window else n for n in lens)
+    return _bound(2 * rows * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * 4,
+                  4 * H * Dh * rows, BF16_FLOP_PER_S)
+
+
 def attention_times(dev, gpu):
-    """Kernel, plain and library device times (bfloat16, the engine's dtype),
-    and the kernel's host rate, for B4
-    at the engine's prefill (B=1, S=32) and at S=2048, and for B3 at the
-    engine's decode (B=4, S=256, the traffic's lengths) and at S=8192;
-    bounds count the keys each query really attends to."""
+    """Kernel, plain and library device times (bfloat16, the engines'
+    dtype), and the kernel's host rate, for B4 at each engine's prefill
+    (B=1, S=32) and at S=2048, and for B3 at each engine's decode (B=4,
+    S=256, the traffic's lengths) and at S=8192 (``FLASH_TIMES``,
+    ``DECODE_TIMES``); bounds count the keys each query really attends to.
+    The library is ``scaled_dot_product_attention`` (a yardstick only: the
+    port never calls it). Shapes whose head width this
+    tree's kernels do not build are skipped. Returns the figures of the
+    qwen1.5-0.5b engine's shapes, keyed ("flash" | "decode", S)."""
     import torch
     import torch.nn.functional as F
 
@@ -534,44 +637,59 @@ def attention_times(dev, gpu):
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     bf16 = torch.bfloat16
     out = {}
-    for S in (PROMPT, 2048):
-        H, Dh = 16, 64
-        q, k, v = (torch.randn((1, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "qkv")
-        pairs = S * (S + 1) // 2  # causal: the keys each query attends to
-        bound, by = _bound(4 * S * H * Dh * 2, 4 * H * Dh * pairs, BF16_FLOP_PER_S)
-        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v), bound)
-        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v))
-        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v), bound, iters=5)
+    for model, B, S, H, KH, Dh, w in FLASH_TIMES:
+        if Dh not in fk.HEAD_DIMS:
+            continue
+        q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(bf16)
+                   for n in (H, KH, KH))
+        bound, by = flash_bound(B, S, H, KH, Dh, w)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None] <= pos[:, None]) & ((pos[None] > pos[:, None] - w) if w else True)
+        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v, window=w), bound)
+        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v, window=w))
+        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v, window=w), bound, iters=5)
+        sdpa = dict(is_causal=True) if not w else dict(attn_mask=mask)
         l_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True), bound)
-        out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
-        print(f"time: flash_attention bf16 B=1 S={S} H={H} KH={H} Dh={Dh} causal "
-              f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={l_ms:.4f} "
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=KH != H,
+            **sdpa), bound)
+        if model == LLM:
+            out["flash", S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                                   bound_by=by)
+        route = "wgmma" if Dh % 64 == 0 else "wgmma (padded to 256)" if Dh > 128 else "mma.sync"
+        print(f"time: flash_attention {model} bf16 B={B} S={S} H={H} KH={KH} Dh={Dh} "
+              f"window={w} causal route={route} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
-    for S, lens in ((ENGINE_SEQ, (48, 40, 33, 1)), (8192, (8192,) * 4)):
-        B, H, Dh = ENGINE_BATCH, 16, 64
+    for model, B, S, H, KH, Dh, w, lens in DECODE_TIMES:
+        if Dh not in dk.HEAD_DIMS:
+            continue
         q = torch.randn((B, H, Dh), generator=g, device=dev).to(bf16)
-        k, v = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "kv")
+        k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(bf16) for _ in "kv")
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
-        rows = sum(lens)  # live cache rows read
-        bound, by = _bound(2 * rows * H * Dh * 2 + 2 * B * H * Dh * 2 + B * 4,
-                           4 * H * Dh * rows, BF16_FLOP_PER_S)
-        k_ms = device_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths), bound)
-        h_ms = host_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths))
-        p_ms = device_ms(lambda: dk.decode_attention_plain(q, k, v, lengths), bound, iters=5)
+        pos = torch.arange(S, device=dev)[None]
+        mask = pos < lengths[:, None]
+        if w:
+            mask &= pos > lengths[:, None] - 1 - w
+        mask = mask[:, None, None, :]
+        bound, by = decode_bound(B, H, KH, Dh, w, lens)
+        k_ms = device_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths, window=w), bound)
+        h_ms = host_ms(lambda: dk.decode_attention_cuda(q, k, v, lengths, window=w))
+        p_ms = device_ms(lambda: dk.decode_attention_plain(q, k, v, lengths, window=w), bound,
+                         iters=5)
         l_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask), bound)
-        out[S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=KH != H), bound)
+        if model == LLM:
+            out["decode", S] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                                    bound_by=by)
         if hasattr(dk, "launch_grid"):
-            (gx, ns), threads = dk.launch_grid(B, H, H, S, Dh, bf16)
+            (gx, ns), threads = dk.launch_grid(B, H, KH, S, Dh, bf16)
             grid = f"splits={ns} grid=({gx},{ns})x{threads}"
         else:
             grid = "splits=n/a grid=n/a"
-        print(f"time: decode_attention bf16 B={B} S={S} H={H} KH={H} Dh={Dh} "
-              f"lengths={list(lens)} {grid} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
-              f"plain_ms={p_ms:.4f} "
+        print(f"time: decode_attention {model} bf16 B={B} S={S} H={H} KH={KH} Dh={Dh} "
+              f"window={w} lengths={list(lens)} {grid} kernel_ms={k_ms:.4f} "
+              f"kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
               f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by}) "
               f"share_of_bound={bound / k_ms:.3f} [{gpu}]")
     return out
@@ -712,13 +830,17 @@ def b2_times(kern, dev, gpu, Q=1):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
 
 
-def model_check(dev, name=LLM, steps=4):
+def model_check(dev, name=LLM, steps=4, layers=None, patches=0):
     """The full-width model ``name`` in float32 with one set of weights, on
     the card (kernels, TF32 off) and on the CPU (plain versions): one
-    32-token prefill and ``steps`` teacher-forced decode steps. Raises if a
-    logit differs by more than ``MODEL_TOL``, or if greedy tokens differ
-    where the CPU logits' top-2 gap exceeds 2e-3. The weights are drawn on
-    the card (fast at full width) and copied to the CPU."""
+    32-token prefill (after a prefix of ``patches`` projected patch
+    embeddings for a vision model; [1, K, 32] codebook tokens for audio) and
+    ``steps`` teacher-forced decode steps. ``layers`` cuts the depth (for
+    the hybrid: Mamba2 blocks, one group of ``hybrid_period`` and its shared
+    block). Raises if a logit differs by more than ``MODEL_TOL``, or if
+    greedy tokens differ where the CPU logits' top-2 gap exceeds 2e-3. The
+    weights are drawn on the card (fast at full width) and copied to the
+    CPU."""
     import dataclasses
 
     import numpy as np
@@ -729,29 +851,46 @@ def model_check(dev, name=LLM, steps=4):
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(name), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     cpu = torch.device("cpu")
     params_dev = T.init_params(cfg, SEED, device=dev)
     params_cpu = _tree_to(params_dev, cpu)
     rng = np.random.default_rng(SEED)
-    toks = rng.integers(0, cfg.vocab_size, (1, PROMPT + steps))
+    lead = (1, cfg.num_codebooks) if cfg.modality == "audio" else (1,)
+    toks = rng.integers(0, cfg.vocab_size, lead + (PROMPT + steps,))
+    vision = rng.standard_normal((1, patches, cfg.d_frontend)).astype(np.float32)
     worst, flips, runs = 0.0, 0, []
     for params, d in ((params_dev, dev), (params_cpu, cpu)):
         cache = T.init_cache(cfg, 1, ENGINE_SEQ, device=d)
         t = torch.as_tensor(toks, device=d)
-        logits, _ = T.prefill(params, cfg, {"tokens": t[:, :PROMPT]}, cache)
+        batch = {"tokens": t[..., :PROMPT]}
+        if patches:
+            batch["vision_embeds"] = torch.as_tensor(vision, device=d)
+        logits, _ = T.prefill(params, cfg, batch, cache)
         out = [logits.cpu()]
         for i in range(steps):
-            pos = torch.tensor([PROMPT + i], device=d)
-            logits, _ = T.decode_step(params, cfg, t[:, PROMPT + i:PROMPT + i + 1], pos, cache)
+            pos = torch.tensor([patches + PROMPT + i], device=d)
+            logits, _ = T.decode_step(params, cfg, t[..., PROMPT + i:PROMPT + i + 1], pos, cache)
             out.append(logits.cpu())
         runs.append(out)
+        del cache
     for got, want in zip(*runs):
         worst = max(worst, float((got - want).abs().max()))
         top2 = torch.topk(want, 2, dim=-1).values
-        decided = (top2[:, 0] - top2[:, 1]) > 2e-3
+        decided = (top2[..., 0] - top2[..., 1]) > 2e-3
         flips += int((decided & (got.argmax(-1) != want.argmax(-1))).sum())
     finite = all(bool(torch.isfinite(x).all()) for x in runs[0])
-    print(f"model: {name} float32 layers={cfg.num_layers} d_model={cfg.d_model} "
+    cut = f"layers={cfg.num_layers}"
+    if layers:
+        cut += f" (cut from {get_config(name).num_layers})"
+    if cfg.family == "hybrid":
+        cut += f" = {cfg.num_layers // cfg.hybrid_period} group(s) of {cfg.hybrid_period} " \
+               f"Mamba2 blocks + a shared block"
+    extra = f" vision_patches={patches}" if patches else ""
+    if cfg.modality == "audio":
+        extra += f" codebooks={cfg.num_codebooks} logits={list(runs[0][0].shape)}"
+    print(f"model: {name} float32 {cut} d_model={cfg.d_model} head_dim={cfg.head_dim}{extra} "
           f"params={sum(x.numel() for x in _leaves(params_cpu))} prefill S={PROMPT} + "
           f"{steps} decode steps, card (kernels) vs CPU (plain) max_abs_logit_err={worst:.3e} "
           f"tol={MODEL_TOL} greedy_flips={flips} finite={finite} "
@@ -759,6 +898,13 @@ def model_check(dev, name=LLM, steps=4):
     if worst > MODEL_TOL or flips or not finite:
         raise AssertionError("the model on the card disagrees with its CPU run")
     return worst
+
+
+# this slice's model: lines: (arch, layers it is cut to, vision patches)
+ARCH_MODEL_CHECKS = [
+    ("qwen3-8b", 2, 0), ("gemma2-27b", 2, 0), ("gemma3-4b", 6, 0), ("zamba2-7b", 6, 0),
+    ("llava-next-mistral-7b", 2, 64), ("musicgen-large", 2, 0),
+]
 
 
 def _leaves(tree):
@@ -771,11 +917,17 @@ def _tree_to(tree, dev):
 
 
 def path_kernels(cfg):
-    """The port's kernels a model's engine launches, each with the engine
-    call it launches in (once per layer there)."""
+    """The port's kernels a model's engine launches: kernel -> (the engine
+    call it launches in, launches per call). Once per layer, except the
+    hybrid's attention: once per group of ``hybrid_period`` Mamba2 blocks."""
     if cfg.family == "ssm":
-        return {"ssd_scan": "prefill"}
-    return {"flash_attention": "prefill", "decode_attention": "decode_step"}
+        return {"ssd_scan": ("prefill", cfg.num_layers)}
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.hybrid_period
+        return {"ssd_scan": ("prefill", cfg.num_layers), "flash_attention": ("prefill", groups),
+                "decode_attention": ("decode_step", groups)}
+    return {"flash_attention": ("prefill", cfg.num_layers),
+            "decode_attention": ("decode_step", cfg.num_layers)}
 
 
 def engine_kernels():
@@ -801,8 +953,8 @@ def expected_launches(cfg, prefills, steps, on_card=True):
     kernels, and for all on the CPU, which runs the plain versions)."""
     want = dict.fromkeys(engine_kernels(), 0)
     if on_card:
-        for name, call in path_kernels(cfg).items():
-            want[name] = cfg.num_layers * (prefills if call == "prefill" else steps)
+        for name, (call, per) in path_kernels(cfg).items():
+            want[name] = per * (prefills if call == "prefill" else steps)
     return want
 
 
@@ -832,7 +984,7 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.engine import ServingEngine, slot_view
 
     cfg = get_config(name)
     t0 = time.perf_counter()
@@ -854,7 +1006,7 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
     per = {"prefill": len(prompts), "decode_step": steps}
     print(f"engine: {name} launches={got} for prefills={len(prompts)} decode_steps={steps}: "
           + " ".join(f"{k}_per_{call}={got[k] / max(per[call], 1):g}"
-                     for k, call in path_kernels(cfg).items()) + f" [{gpu}]")
+                     for k, (call, _) in path_kernels(cfg).items()) + f" [{gpu}]")
     if got != want:
         raise AssertionError(f"engine kernel launches {got} != {want}")
     if [len(o) for o in outs] != [NEW_TOKENS] * len(prompts):
@@ -863,7 +1015,7 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
         raise AssertionError("a generated token lies outside the vocabulary")
 
     # the two model calls the engine makes, timed at its shapes
-    slot = {k: v[:, :1] for k, v in engine.cache.items()}
+    slot = slot_view(engine.cache, 0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, PROMPT)), device=dev)
 
     def prefill():
@@ -887,23 +1039,28 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
     return engine
 
 
+KERNEL_NAMES = {"flash_attention": "flash_fwd", "decode_attention": "decode_fwd",
+                "ssd_scan": "ssd_"}  # a substring of each kernel's CUDA function names
+
+
 def engine_long_phase(dev, gpu, params, cfg, name=LLM):
-    """The full-width bfloat16 dense model's own calls at long lengths, as
-    ``engine_phase`` times them at the engine's: a [4, 8192] cache from
-    ``T.init_cache``, then the p50 of one 2048-token prefill into one slot
-    and of a B = 4 decode step at pos = 8191 (every sequence 8192 rows long),
-    with B4's and B3's device ms per call from a profiler trace of the same
-    calls. Launches, counted over every call: flash == layers x prefills,
-    decode == layers x steps."""
+    """A full-width bfloat16 attention (or hybrid) model's own calls at long
+    lengths, as ``engine_phase`` times them at the engine's: a [4, 8192]
+    cache from ``T.init_cache``, then the p50 of one 2048-token prefill into
+    one slot and of a B = 4 decode step at pos = 8191 (every sequence 8192
+    rows long), with each path kernel's device ms per launch (B4 and B3;
+    B5 too for the hybrid) from a profiler trace of the same calls.
+    Launches, counted over every call, as ``expected_launches`` says."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import slot_view
 
     cache = T.init_cache(cfg, ENGINE_BATCH, LONG_SEQ, device=dev)
-    cache_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
-    slot = {k: v[:, :1] for k, v in cache.items()}
+    cache_gb = sum(v.numel() * v.element_size() for v in _leaves(cache)) / 1e9
+    slot = slot_view(cache, 0)
     rng = np.random.default_rng(SEED + 10)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT)), device=dev)
     step_toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, 1)), device=dev)
@@ -929,24 +1086,26 @@ def engine_long_phase(dev, gpu, params, cfg, name=LLM):
         raise AssertionError(f"long-engine kernel launches {got} != {want}")
     if not all(bool(torch.isfinite(x).all()) for x in outs):
         raise AssertionError("the long-engine logits are not finite")
-    per_call = {}
-    for fn, kname, call in ((prefill, "flash_fwd", "prefill"), (decode, "decode_fwd", "step")):
+    per_launch, call_ms = {}, {}
+    for fn, call in ((prefill, "prefill"), (decode, "decode_step")):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-        dev_ms = [e.device_time_total / 1e3 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e.device_time_total / 1e3 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and kname in e.name]
-        per_call[call] = (sum(mine) / max(len(mine), 1), sum(dev_ms) / 3)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        call_ms[call] = sum(e.device_time_total for e in events) / 1e3 / 3
+        for kernel, (kcall, per) in path_kernels(cfg).items():
+            if kcall == call:
+                mine = [e.device_time_total / 1e3 for e in events
+                        if KERNEL_NAMES[kernel] in e.name]
+                per_launch[kernel] = sum(mine) / (3 * per)
     print(f"engine: {name} long {cfg.dtype} cache=[{ENGINE_BATCH}, {LONG_SEQ}] "
           f"cache_GB={cache_gb:.2f} prefill_S{LONG_PROMPT}_p50_ms={pre_ms:.3f} "
           f"decode_step_B{ENGINE_BATCH}_pos{LONG_SEQ - 1}_p50_ms={dec_ms:.3f} "
-          f"flash_device_ms_per_call={per_call['prefill'][0]:.4f} "
-          f"decode_device_ms_per_call={per_call['step'][0]:.4f} "
-          f"prefill_device_ms={per_call['prefill'][1]:.3f} "
-          f"decode_step_device_ms={per_call['step'][1]:.3f} launches={got} [{gpu}]")
+          + " ".join(f"{k.split('_')[0]}_device_ms_per_call={v:.4f}"
+                     for k, v in per_launch.items())
+          + f" prefill_device_ms={call_ms['prefill']:.3f} "
+          f"decode_step_device_ms={call_ms['decode_step']:.3f} launches={got} [{gpu}]")
     del cache, slot, outs
 
 
@@ -1087,16 +1246,17 @@ def store_phase(enc, dev, gpu, queries, cap=L2_CAP):
     return launches
 
 
-def main_path(dev, gpu, backend, ssm_backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP,
-              profile=False):
-    """The port's read path end to end through its user entry points, with
-    ``backend`` (a ``ModelBackend`` over the dense serving engine) answering
-    the misses, then the same burst with ``ssm_backend`` (over the SSM
-    engine). ``cfg``/caps default to the full-width configuration; smaller
-    ones rehearse the same path on the CPU. ``profile`` adds a traced
-    breakdown of one fused read (``profile_read``). Returns the kernels'
-    launches during the traffic (B1, B3 and B4 from the dense engine's
-    replay, B5 from the SSM engine's), and the encoder and probes for
+def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
+    """The port's read path end to end through its user entry points: the
+    same burst replayed with ``MockLLM`` answering the misses, then with
+    each of ``backends`` in turn (zero-argument callables that return an
+    ``LLMBackend``, built when its replay starts and dropped after it: a
+    ``ModelBackend`` over the dense engine, then over the SSM engine, then
+    any others). ``cfg``/caps default to the full-width configuration;
+    smaller ones rehearse the same path on the CPU. ``profile`` adds a
+    traced breakdown of one fused read (``profile_read``). Returns the
+    kernels' launches during the traffic (B1, B3 and B4 from the first
+    backend's replay, B5 from the second's), and the encoder and probes for
     ``store_phase``."""
     import numpy as np
     import torch
@@ -1224,8 +1384,17 @@ def main_path(dev, gpu, backend, ssm_backend, cfg=None, l1_cap=L1_CAP, l2_cap=L2
     # engines' effect on hit latency is read within one run; then the main
     # path proper, each engine answering the misses in turn
     replay(MockLLM("mock-llm", latency_s=0.02))
-    h, bank, launches = replay(backend)
-    launches["ssd_scan"] = replay(ssm_backend)[2]["ssd_scan"]
+    counts = []
+    for make in backends:
+        llm = make()
+        h, bank, replay_launches = replay(llm)
+        counts.append(replay_launches)
+        del llm
+        if on_card:
+            free_card()
+    launches = dict(counts[0])
+    if len(counts) > 1:
+        launches["ssd_scan"] = counts[1]["ssd_scan"]
 
     # one read's decisions recomputed with the plain version on the same bank
     levels = [c for _, c in h._levels()]
@@ -1327,6 +1496,113 @@ def profile_read(read, prepare, gpu, reads=10):
         print(f"profile:   {ms:.4f} ms/read  x{n / reads:g}  {name[:100]}")
 
 
+# this slice's engines (full depth, bfloat16), in the order they run; the
+# first is kept for its traffic replay with the last, which is loaded then
+ARCH_ENGINES = ("gemma2-27b", "gemma3-4b", "llava-next-mistral-7b")
+LONG_ARCHS = ("gemma3-4b", "zamba2-7b")  # with an ``engine: ... long`` line
+TRAFFIC_ARCHS = ("qwen3-8b", "zamba2-7b")  # with a ``traffic:`` replay
+AUDIO_LLM = "musicgen-large"
+
+
+def free_card():
+    """Drop what nothing references any more and hand its device memory
+    back, so the next full-width model fits (gemma2-27b holds ~60 GB)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def arch_engine(dev, gpu, name):
+    """``engine_phase`` for one of this slice's text models at full depth
+    and width in bfloat16, then its long line where it has one; returns the
+    engine."""
+    engine = engine_phase(dev, gpu, name)
+    if name in LONG_ARCHS:
+        engine_long_phase(dev, gpu, engine.params, engine.cfg, name)
+        free_card()
+    return engine
+
+
+def arch_backend(dev, gpu, name):
+    """A ``ModelBackend`` over ``arch_engine``'s engine, for a replay."""
+    from repro_torch.serving.engine import ModelBackend
+
+    return ModelBackend(name, arch_engine(dev, gpu, name))
+
+
+def audio_phase(dev, gpu, name=AUDIO_LLM):
+    """The audio model at full depth and width in bfloat16 through its own
+    calls, since ``ModelBackend`` refuses audio (checked here): a B = 4
+    prefill of [4, K, 32] codebook tokens and a B = 4 decode step, their
+    launches (flash == layers per prefill, decode == layers per step,
+    counted before the timing), [B, K, V] float32 logits, then both p50s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ModelBackend, ServingEngine
+
+    cfg = get_config(name)
+    params = T.init_params(cfg, SEED, device=dev)
+    cache = T.init_cache(cfg, ENGINE_BATCH, ENGINE_SEQ, device=dev)
+    rng = np.random.default_rng(SEED + 12)
+    K, V = cfg.num_codebooks, cfg.vocab_size
+    toks = torch.as_tensor(rng.integers(0, V, (ENGINE_BATCH, K, PROMPT)), device=dev)
+    step_toks = torch.as_tensor(rng.integers(0, V, (ENGINE_BATCH, K, 1)), device=dev)
+    pos = torch.tensor([48, 40, 33, PROMPT], device=dev)
+
+    def prefill():
+        return T.prefill(params, cfg, {"tokens": toks}, cache)[0]
+
+    def decode():
+        return T.decode_step(params, cfg, step_toks, pos, cache)[0]
+
+    torch.cuda.synchronize()
+    reset_engine_launches()
+    outs = [prefill(), decode()]
+    torch.cuda.synchronize()
+    got, want = engine_launches(), expected_launches(cfg, 1, 1)
+    if got != want:
+        raise AssertionError(f"{name} kernel launches {got} != {want}")
+    if any(tuple(o.shape) != (ENGINE_BATCH, K, V) or not bool(torch.isfinite(o).all())
+           for o in outs):
+        raise AssertionError(f"{name} logits are not finite [{ENGINE_BATCH}, {K}, {V}]")
+    backend = ModelBackend(name, ServingEngine(cfg, params, max_batch=1, max_seq=16, device=dev))
+    try:
+        backend.generate("a text prompt", max_tokens=2)
+        raise AssertionError("ModelBackend served an audio model a text prompt")
+    except NotImplementedError:
+        pass
+    pre_ms, dec_ms = p50_ms(prefill), p50_ms(decode)
+    print(f"engine: {name} model-level (ModelBackend refuses audio: ok) bfloat16 "
+          f"params={sum(x.numel() for x in _leaves(params))} layers={cfg.num_layers} "
+          f"codebooks={K} logits={[ENGINE_BATCH, K, V]} launches={got} for 1 prefill + 1 step "
+          f"prefill_B{ENGINE_BATCH}_S{PROMPT}_p50_ms={pre_ms:.3f} "
+          f"decode_step_B{ENGINE_BATCH}_p50_ms={dec_ms:.3f} [{gpu}]")
+    del params, cache, backend, outs
+
+
+def arch_models(dev):
+    """This slice's ``model:`` lines (float32, layer-cut, card vs CPU)."""
+    for name, layers, patches in ARCH_MODEL_CHECKS:
+        model_check(dev, name, layers=layers, patches=patches)
+        free_card()
+
+
+def arch_rest(dev, gpu):
+    """This slice's engines without a replay, one at a time, then the audio
+    model's line."""
+    for name in ARCH_ENGINES:
+        arch_engine(dev, gpu, name)
+        free_card()
+    audio_phase(dev, gpu)
+    free_card()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1340,6 +1616,10 @@ def main() -> int:
     ap.add_argument("--ssd-only", action="store_true",
                     help="only B5: build it, hold it against its plain version, time it "
                          "and the long mamba2 prefill line, then stop")
+    ap.add_argument("--arch-only", action="store_true",
+                    help="only the qwen3-8b, gemma2-27b, gemma3-4b, llava, musicgen and "
+                         "zamba2-7b phases: B3/B4 checks and times, their model:, engine:, "
+                         "long and traffic: lines, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -1400,6 +1680,15 @@ def main() -> int:
               f"main-path grid={plan[1][-1]} blocks (lane rows per block {plan[0]}), "
               f"ring stages at Q=1/8/16: {[kern.stream_stages(Q, DIM, TOPK) for Q in (1, 8, 16)]}")
 
+    if args.arch_only:
+        attention_checks(dev)
+        attention_times(dev, gpu)
+        arch_models(dev)
+        main_path(dev, gpu, [lambda n=n: arch_backend(dev, gpu, n) for n in TRAFFIC_ARCHS])
+        free_card()
+        arch_rest(dev, gpu)
+        print(f"arch-only: done [{gpu}]")
+        return 0
     errs = {"similarity_topk_lanes": kernel_checks(kern, dev),
             "similarity_topk": b2_checks(kern, dev)}
     if args.topk_only:
@@ -1414,13 +1703,14 @@ def main() -> int:
     times = {"similarity_topk_lanes": b1_times["main-path", 8],  # the fused read at max_batch 8
              "similarity_topk": b2_times(kern, dev, gpu)}
     attn_times = attention_times(dev, gpu)
-    times["flash_attention"] = attn_times[PROMPT]  # the engine's prefill
-    times["decode_attention"] = attn_times[ENGINE_SEQ]  # the engine's decode step
+    times["flash_attention"] = attn_times["flash", PROMPT]  # the engine's prefill
+    times["decode_attention"] = attn_times["decode", ENGINE_SEQ]  # the engine's decode step
     times["ssd_scan"] = ssd_times(dev, gpu)[PROMPT]  # the SSM engine's prefill
     torch.cuda.empty_cache()
     model_check(dev)
     model_check(dev, SSM_LLM)
-    torch.cuda.empty_cache()
+    arch_models(dev)
+    free_card()
     engine = engine_phase(dev, gpu)
     engine_long_phase(dev, gpu, engine.params, engine.cfg)
     torch.cuda.empty_cache()
@@ -1428,10 +1718,18 @@ def main() -> int:
     ssm_engine = engine_phase(dev, gpu, SSM_LLM, lengths=(2, 32, 12, 27, 9, 20))
     ssm_long_phase(dev, gpu, ssm_engine.params, ssm_engine.cfg)
     torch.cuda.empty_cache()
-    launches, enc, queries = main_path(dev, gpu, ModelBackend(LLM, engine),
-                                       ModelBackend(SSM_LLM, ssm_engine), profile=args.profile)
+    # the main path: the qwen1.5-0.5b and mamba2-1.3b engines' replays (the
+    # JSON line's launches), then qwen3-8b's and zamba2-7b's, each engine
+    # built (with its engine: lines) when its replay starts
+    backends = [lambda: ModelBackend(LLM, engine), lambda: ModelBackend(SSM_LLM, ssm_engine)]
+    backends += [lambda n=n: arch_backend(dev, gpu, n) for n in TRAFFIC_ARCHS]
+    launches, enc, queries = main_path(dev, gpu, backends, profile=args.profile)
+    del backends
     torch.cuda.empty_cache()
     launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
+    del engine, ssm_engine, enc
+    free_card()
+    arch_rest(dev, gpu)
     print("kernels: " + " ".join(f"{k} launches={v}" for k, v in launches.items()))
     figures = []
     for name, source, replaces in (

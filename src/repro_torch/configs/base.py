@@ -2,12 +2,13 @@
 fields the port reads.
 
 Every architecture is one frozen ``ModelConfig``; reduced smoke variants
-keep the family mechanisms at tiny widths. The dense and SSM families run
-here, so the fields of the other families and of the reference's trainer
-and TPU programs are left out; each comes back with the slice that reads it:
+keep the family mechanisms at tiny widths. The dense, SSM, hybrid, vision
+and audio families run here, so the fields of the other families and of the
+reference's trainer and TPU programs are left out; each comes back with the
+slice that reads it:
 
-- the MoE/MLA sub-configs, the hybrid and modality-frontend fields and
-  ``mtp_depth`` with the other families (ROADMAP queue A item 10);
+- the MoE/MLA sub-configs and ``mtp_depth`` with the MoE and MLA families
+  (ROADMAP queue A items 10d and 10e);
 - ``max_seq_len``, the training knobs (``remat``, ``remat_policy``,
   ``loss_chunk``, ``optimizer``, ``grad_accum``) and the parameter counts
   (``total_params``, ``active_params_per_token``) with the training port;
@@ -35,13 +36,13 @@ class SSMConfig:
     chunk_size: int = 256
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm (the others wait for ROADMAP queue A item 10)
+    family: str  # dense | ssm | hybrid | vlm | audio (moe waits for ROADMAP queue A item 10d)
     num_layers: int
     d_model: int
     num_heads: int
@@ -70,6 +71,16 @@ class ModelConfig:
 
     # --- family sub-configs --------------------------------------------------
     ssm: Optional[SSMConfig] = None
+
+    # --- hybrid (zamba2) ------------------------------------------------------
+    hybrid_period: int = 0  # apply a shared attn block after every N ssm blocks
+    num_shared_blocks: int = 0  # alternating shared attention blocks
+
+    # --- modality frontends (stubs, as in the reference) ----------------------
+    modality: str = "text"  # text | vision | audio
+    num_codebooks: int = 0  # musicgen: EnCodec codebooks
+    vision_patches: int = 0  # llava stub: number of patch embeddings per image
+    d_frontend: int = 0  # dim of stub frontend embeddings
 
     # --- numerics -------------------------------------------------------------
     dtype: str = "bfloat16"

@@ -23,14 +23,21 @@
 //     over; NS = 1 for short caches, which then stay a single pass). A block
 //     reads only the rows of its run that are live: a run wholly past
 //     lengths[b], or before the window's first row, loads nothing.
-//   - Rows go to warps. A K or V row is read as 16-byte vectors, one per
-//     lane (8 bf16 or 4 f32): a bf16 Dh = 64 row takes 8 lanes, so one warp
-//     load covers 4 rows. Each warp keeps U such row groups' loads in
-//     flight (8 warps a block, 2-3 blocks an SM: 32-64 KB an SM). The G
-//     query heads served by a block (GM at most, templated; larger groups
-//     take several head chunks) sit in registers; a dot product is reduced
-//     by shuffles among the row's lanes. Each lane keeps the online-softmax
-//     state of its row group for every head and accumulates its own 16 bytes'
+//   - Rows go to warps. A K or V row is read as 16-byte vectors (8 bf16 or
+//     4 f32) spread over a power-of-two group of LPR lanes: a bf16 Dh = 64
+//     row takes 8 lanes, so one warp load covers 4 rows. A row of more than
+//     32 vectors (Dh 224 and 256 in float32: 56 and 64) gives each lane NV =
+//     2 vectors, lane c holding vectors c and c + 32. A row whose vector
+//     count is not a power of two (Dh 224: 28 in bf16, 56 = 2 x 28 in f32)
+//     takes the next power of two of lanes (32), the lanes past the row
+//     loading nothing and adding zeros to the shuffle sums. Each warp keeps
+//     U such row groups' loads in flight (8 warps a block, 2-3 blocks an SM:
+//     32-64 KB an SM). The G query heads served by a block (GM at most,
+//     templated: 8 up to Dh 128 and 4 above, where the block's [8][GM][Dh]
+//     float32 merge buffer must stay within 48 KB; larger groups take
+//     several head chunks) sit in registers; a dot product is reduced by
+//     shuffles among the row's lanes. Each lane keeps the online-softmax
+//     state of its row group for every head and accumulates its own vectors'
 //     worth of output dims.
 //   - Merges in the same launch. The row groups of a warp merge by shuffles
 //     and the warps of a block through shared memory, by the LSE rule
@@ -82,6 +89,10 @@ __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
 template <typename T, int DH, int GM>
 __global__ void __launch_bounds__(THREADS)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -89,10 +100,14 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            int* __restrict__ counters, int S, int H, int KH, int HC, int rows_per_split,
            int window, float softcap, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per lane-vector
-  constexpr int LPR = DH / VEC;        // lanes per row
+  constexpr int CH = DH / VEC;         // 16-byte vectors per row
+  constexpr int NV = (CH + 31) / 32;   // vectors per lane
+  constexpr int LPR = pow2_ceil((CH + NV - 1) / NV);  // lanes per row
+  constexpr bool FULL = NV * LPR == CH;  // every lane's vectors lie in the row
+  constexpr int DV = NV * VEC;         // dims per lane
   constexpr int RPW = 32 / LPR;        // rows per warp load
   constexpr int U = GM >= 4 ? 2 : 4;   // warp loads in flight per lane
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row width");
+  static_assert(DH % VEC == 0 && LPR >= 1 && LPR <= 32 && NV <= 2, "row width");
 
   __shared__ float s_acc[NW][GM][DH];
   __shared__ float s_m[NW][GM], s_l[NW][GM];
@@ -115,7 +130,10 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int rg = lane / LPR;  // row group within a warp load
-  const int c = lane % LPR;   // this lane's 16-byte chunk of a row
+  const int c = lane % LPR;   // this lane's vectors of a row: c, c + LPR, ...
+  bool has[NV];               // ... which lie in the row
+#pragma unroll
+  for (int j = 0; j < NV; ++j) has[j] = FULL || c + j * LPR < CH;
 
   const int length = lengths[b];
   const int hi = min(length, S);
@@ -129,47 +147,62 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const T* vb = v + (size_t)b * S * krow + (size_t)kh * DH + c * VEC;
   const int h0 = kh * G + g0;  // first query head of this block
 
-  float qf[GM][VEC], m[GM], l[GM], acc[GM][VEC];
+  float qf[GM][DV], m[GM], l[GM], acc[GM][DV];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < gn) {
-      unpack(load16(q + ((size_t)b * H + h0 + g) * DH + c * VEC), qf[g]);
-    } else {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[g][i] = 0.f;
+    for (int j = 0; j < NV; ++j) {
+      float f[VEC];
+      if (g < gn && has[j]) {
+        unpack(load16(q + ((size_t)b * H + h0 + g) * DH + (c + j * LPR) * VEC), f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) f[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qf[g][j * VEC + i] = f[i];
     }
     m[g] = NEG;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < DV; ++i) acc[g][i] = 0.f;
   }
 
   // warp-uniform loop: each lane's row is wb + u * NW * RPW + rg
   for (int wb = row_lo + warp * RPW; wb < row_hi; wb += NW * RPW * U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NV], vr[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int row = wb + u * NW * RPW + rg;
       ok[u] = row < row_hi;
-      if (ok[u]) {
-        kr[u] = load16(kb + (size_t)row * krow);
-        vr[u] = load16(vb + (size_t)row * krow);
-      } else {
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = kr[u];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (ok[u] && has[j]) {
+          kr[u][j] = load16(kb + (size_t)row * krow + j * LPR * VEC);
+          vr[u][j] = load16(vb + (size_t)row * krow + j * LPR * VEC);
+        } else {
+          kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+          vr[u][j] = kr[u][j];
+        }
       }
     }
     float s[GM][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      unpack(kr[u], kf);
+      float kf[DV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float f[VEC];
+        unpack(kr[u][j], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) kf[j * VEC + i] = f[i];
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) dot = fmaf(qf[g][i], kf[i], dot);
+        for (int i = 0; i < DV; ++i) dot = fmaf(qf[g][i], kf[i], dot);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -187,21 +220,25 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const float alpha = expf(m[g] - m_new);
       l[g] *= alpha;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[g][i] *= alpha;
+      for (int i = 0; i < DV; ++i) acc[g][i] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = ok[u] ? expf(s[g][u] - m_new) : 0.f;
         l[g] += p;
-        float vf[VEC];
-        unpack(vr[u], vf);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+        for (int j = 0; j < NV; ++j) {
+          float vf[VEC];
+          unpack(vr[u][j], vf);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            acc[g][j * VEC + i] = fmaf(p, vf[i], acc[g][j * VEC + i]);
+        }
       }
       m[g] = m_new;
     }
   }
 
-  // merge the warp's row groups: lanes with the same chunk c
+  // merge the warp's row groups: lanes with the same c
 #pragma unroll
   for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
@@ -212,7 +249,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const float a = expf(m[g] - mn), bw = expf(mo - mn);
       l[g] = l[g] * a + lo_ * bw;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
+      for (int i = 0; i < DV; ++i) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
         acc[g][i] = acc[g][i] * a + ao * bw;
       }
@@ -223,7 +260,12 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) s_acc[warp][g][c * VEC + i] = acc[g][i];
+      for (int j = 0; j < NV; ++j) {
+        if (!has[j]) continue;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          s_acc[warp][g][(c + j * LPR) * VEC + i] = acc[g][j * VEC + i];
+      }
       if (c == 0) {
         s_m[warp][g] = m[g];
         s_l[warp][g] = l[g];
@@ -325,15 +367,19 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// heads per block: the group G rounded up to 1, 2, 4 or 8; larger groups
-// take ceil(G / 8) head chunks of 8
+// heads per block: the group G rounded up to 1, 2, 4 or 8 (4 above Dh 128,
+// kernel.max_heads); larger groups take ceil(G / GM) head chunks of GM
 template <typename T, int DH>
 int dispatch_g(const Args& a, cudaStream_t st) {
   const int G = a.H / a.KH;
   if (G <= 1) return launch<T, DH, 1>(a, st);
   if (G <= 2) return launch<T, DH, 2>(a, st);
-  if (G <= 4) return launch<T, DH, 4>(a, st);
-  return launch<T, DH, 8>(a, st);
+  if constexpr (DH > 128) {
+    return launch<T, DH, 4>(a, st);
+  } else {
+    if (G <= 4) return launch<T, DH, 4>(a, st);
+    return launch<T, DH, 8>(a, st);
+  }
 }
 
 template <typename T>
@@ -343,6 +389,8 @@ int dispatch_dh(const Args& a, int Dh, cudaStream_t st) {
     case 32: return dispatch_g<T, 32>(a, st);
     case 64: return dispatch_g<T, 64>(a, st);
     case 128: return dispatch_g<T, 128>(a, st);
+    case 224: return dispatch_g<T, 224>(a, st);
+    case 256: return dispatch_g<T, 256>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -353,7 +401,8 @@ extern "C" {
 
 // q [B, H, Dh], k/v [B, S, KH, Dh], o [B, H, Dh], all contiguous, 16-byte
 // aligned and of one dtype (0 = float32, 1 = bfloat16); lengths [B] int32;
-// Dh in {16, 32, 64, 128}; H % KH == 0; window 0 = none; softcap 0 = none.
+// Dh in {16, 32, 64, 128, 224, 256}; H % KH == 0; window 0 = none; softcap
+// 0 = none.
 // ns splits of rows_per_split rows (a multiple of 64, 1 <= ns <= 64,
 // ns * rows_per_split >= S). With ns > 1: ws holds B * H * ns * (Dh + 2)
 // floats and counters B * H ints (one per (b, KV head, head chunk) is used),

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels.build import CudaLibrary, require_sm90
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the CUDA kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 224, 256)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_S = 64  # cache rows per split tile (``TILE`` in the CUDA source)
 THREADS = 256  # threads per block (``THREADS`` in the CUDA source)
@@ -74,12 +74,20 @@ def num_splits(B: int, KH: int, S: int, Dh: int, dtype: torch.dtype) -> int:
     return split_plan(B, KH, S, Dh, dtype)[0]
 
 
+def max_heads(Dh: int) -> int:
+    """Query heads one block serves at most: 8, and 4 above Dh 128, where
+    the block's [8 warps, heads, Dh] float32 merge buffer must stay within
+    48 KB of shared memory (``dispatch_g`` in the CUDA source)."""
+    return 8 if Dh <= 128 else 4
+
+
 def launch_grid(B: int, H: int, KH: int, S: int, Dh: int, dtype: torch.dtype) -> tuple:
     """The kernel's grid (B * KH * head chunks, NS) and threads per block.
-    A block serves up to 8 query heads of its KV head (the launcher rounds
-    the group G up to 1, 2, 4 or 8), so G > 8 takes ceil(G / 8) chunks."""
+    A block serves up to ``max_heads(Dh)`` query heads of its KV head (the
+    launcher rounds the group G up to 1, 2, 4 or 8, at most that), so larger
+    groups take ceil(G / max_heads) chunks."""
     G = H // KH
-    chunks = -(-G // 8)
+    chunks = -(-G // max_heads(Dh))
     return (B * KH * chunks, num_splits(B, KH, S, Dh, dtype)), THREADS
 
 

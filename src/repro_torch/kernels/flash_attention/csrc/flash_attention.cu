@@ -15,8 +15,15 @@
 // and from the window's lower bound (the TPU kernel skips only their compute).
 //
 // Which kernel serves which dtype, and why:
-//   - bfloat16 (the engines' dtype), Dh = 64 or 128 -> flash_fwd_wgmma, on
-//     Hopper's warpgroup tensor-core products.
+//   - bfloat16 (the engines' dtype), Dh = 64, 128 or 256 -> flash_fwd_wgmma,
+//     on Hopper's warpgroup tensor-core products.
+//   - bfloat16, Dh = 224 (zamba2's shared attention) -> flash_fwd_wgmma with
+//     its tiles padded to 256: 224 is 3.5 of the 128-byte swizzle atoms the
+//     wgmma tiles are built from, so the last atom's upper half is zero-filled
+//     by the cp.async copies (source size 0); QK^T runs the 14 k-steps that
+//     hold data, PV writes 256 columns and the 32 past 224 are not stored.
+//     Padding was chosen over flash_fwd_mma at this width by timing both
+//     (PERF.md, Findings).
 //   - bfloat16, Dh = 16 or 32 -> flash_fwd_mma, on mma.sync (a 16- or
 //     32-wide row is narrower than the 128-byte swizzle atom the wgmma
 //     kernel's tiles are built from; no model on the port's paths has it
@@ -42,8 +49,11 @@
 //   - flash_fwd_wgmma: QK^T is wgmma m64n64k16 with Q and K in 128-byte-
 //     swizzled shared memory (K-major), Dh / 16 k-steps; PV is wgmma
 //     m64nDhk16 with P from registers and V read MN-major through the
-//     transpose bit. Step i issues QK^T of tile i and PV of tile i - 1
-//     together and runs tile i's softmax while PV is on the tensor cores.
+//     transpose bit (m64n256 as two m64n128 halves). Step i issues QK^T of
+//     tile i and PV of tile i - 1 together and runs tile i's softmax while PV
+//     is on the tensor cores. At Dh 256 a thread holds the 128 floats of the
+//     output fragment, 32 scores and 16 words of P: 3 ring stages of 64 KB
+//     and the Q tile take 225 KB, one block an SM.
 //   - flash_fwd_mma: mma.sync m16n8k16 with Q's fragments in registers, K
 //     and V (transposed) read by ldmatrix from rows padded by 16 bytes, an
 //     odd number of 16-byte units, so the reads are free of bank conflicts.
@@ -62,7 +72,9 @@
 //
 // flash_fwd_f32: one 256-thread block per (b, h, 64-row query tile) walking
 // the K/V tiles staged through shared memory; four threads share a query row
-// (keys c, c+4, ...; output dims c, c+4, ...) and reduce by shuffles.
+// (keys c, c+4, ...; output dims c, c+4, ...) and reduce by shuffles. At
+// Dh 224 and 256 its tiles take 189 and 214 KB of shared memory: one block
+// an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -482,7 +494,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bf16 at Dh = 64 and 128: wgmma (Hopper's warpgroup products) ----
+// ---- bf16 at Dh = 64, 128, 224 (padded to 256) and 256: wgmma (Hopper's warpgroup products) ----
 
 // a wgmma shared-memory operand descriptor for a 128-byte-swizzled tile:
 // start address, leading and stride byte offsets (16-byte units), layout B128
@@ -559,18 +571,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[64 x N] += a (registers, 64 x 16) * the [16, N] V slice at shared address
+// vs (MN-major: N runs over 64-column atoms 8 KB apart, k over 1 KB row groups)
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b);
+                                         uint32_t vs);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  wgmma_rs_n64(d, a, desc_b);
+                                             uint32_t vs) {
+  wgmma_rs_n64(d, a, wg_desc(vs, 64 * 128, 1024));
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  wgmma_rs_n128(d, a, desc_b);
+                                              uint32_t vs) {
+  wgmma_rs_n128(d, a, wg_desc(vs, 64 * 128, 1024));
+}
+// n = 256 as two n = 128 halves: the halves' fragments are the n256 fragment's
+// first and last 64 floats
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&d)[128], const uint32_t (&a)[4],
+                                              uint32_t vs) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, wg_desc(vs, 64 * 128, 1024));
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                wg_desc(vs + 2 * 64 * 128, 64 * 128, 1024));
 }
 
 // Byte offset of the 16-byte chunk c of row r in a 64-row tile stored for
@@ -583,32 +606,37 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 
 // Stages of the wgmma kernel's K/V ring: tiles loading ahead, + K of the
 // tile in QK^T, + V of the tile in PV. Two tiles ahead at Dh = 64; one at
-// Dh = 128, where a fourth 32 KB stage would leave one block per SM.
+// Dh = 128 and 256, where a fourth stage would leave one block per SM (at
+// 128) or not fit (at 256: 3 stages and Q take 225 of the 227 KB).
 __host__ __device__ constexpr int wg_stages(int dh) { return dh <= 64 ? 4 : 3; }
 
-template <int DH>
+template <int DHP>
 __host__ __device__ constexpr size_t wg_smem_bytes() {  // Q, the K/V ring, alignment
-  return (size_t)(1 + 2 * wg_stages(DH)) * 64 * DH * sizeof(bf16) + 1024;
+  return (size_t)(1 + 2 * wg_stages(DHP)) * 64 * DHP * sizeof(bf16) + 1024;
 }
 
-template <int DH>
+// DH is the tensors' head width, DHP the tiles' (DH rounded up to whole
+// 64-column atoms: DH itself at 64, 128 and 256; 256 at 224).
+template <int DH, int DHP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int B, int S, int H, int KH,
                 int nq, int causal, int window, float softcap, float scale) {
-  constexpr int TILE = 64 * DH * (int)sizeof(bf16);  // bytes of one 64-row tile
-  constexpr int KSTEPS = DH / 16;  // k-steps of QK^T
+  constexpr int TILE = 64 * DHP * (int)sizeof(bf16);  // bytes of one 64-row tile
+  constexpr int KSTEPS = DH / 16;  // k-steps of QK^T (the padded columns are zeros)
   constexpr int NT = TC_BK / 8;    // 8-key n-tiles of a score tile
-  constexpr int DT = DH / 8;       // 8-dim n-tiles of the output
-  constexpr int CPR = DH / 8;      // 16-byte chunks per row
-  constexpr int STAGES = wg_stages(DH);
+  constexpr int DT = DH / 8;       // 8-dim n-tiles of the output that are stored
+  constexpr int CPR = DH / 8;      // 16-byte chunks per row of the tensors
+  constexpr int CPRP = DHP / 8;    // ... and of the tiles (those past CPR zero-filled)
+  constexpr int STAGES = wg_stages(DHP);
   constexpr int AHEAD = STAGES - 2;  // tiles in flight ahead of the one in QK^T
+  static_assert(DHP % 64 == 0 && DH <= DHP && DHP - DH < 64 && DH % 16 == 0, "head width");
   extern __shared__ __align__(16) unsigned char smem_wg[];
   // the B128 swizzle is read from address bits, so tiles start on 1 KB
   const uint32_t base = (smem_u32(smem_wg) + 1023u) & ~1023u;
-  const uint32_t qs = base;                          // [64][DH]
-  const uint32_t ks = base + TILE;                // [STAGES][64][DH]
-  const uint32_t vs = base + (1 + STAGES) * TILE;  // [STAGES][64][DH]
+  const uint32_t qs = base;                          // [64][DHP]
+  const uint32_t ks = base + TILE;                // [STAGES][64][DHP]
+  const uint32_t vs = base + (1 + STAGES) * TILE;  // [STAGES][64][DHP]
 
   const int BH = B * H;
   const int rank = blockIdx.x / BH;  // causal: the longest query tiles first
@@ -633,32 +661,28 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_lo = k_lo / TC_BK;
   const int ntiles = k_hi / TC_BK - t_lo + 1;
 
-  for (int e = tid; e < TC_BQ * CPR; e += TC_THREADS) {
-    const int r = e / CPR, ch = e % CPR;
-    const bool in = q0 + r < S;
-    cp_async16(qs + sw128(r, ch), qb + (size_t)(in ? q0 + r : 0) * qrow + ch * 8, in);
+  for (int e = tid; e < TC_BQ * CPRP; e += TC_THREADS) {
+    const int r = e / CPRP, ch = e % CPRP;
+    const bool in = q0 + r < S && ch < CPR;
+    cp_async16(qs + sw128(r, ch), qb + (in ? (size_t)(q0 + r) * qrow + ch * 8 : 0), in);
   }
-  // this thread's 16-byte chunks of a K/V tile: the same rows and offsets in every tile
-  constexpr int PER = TC_BK * CPR / TC_THREADS;
-  int c_row[PER];
-  uint32_t c_smem[PER], c_glob[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int e = tid + j * TC_THREADS, r = e / CPR, ch = e % CPR;
-    c_row[j] = r;
-    c_smem[j] = sw128(r, ch);
-    c_glob[j] = (uint32_t)(r * krow + ch * 8);
-  }
+  // this thread's 16-byte chunks of a K/V tile: chunk tid % CPRP of the rows
+  // tid / CPRP + j * RPJ, the same in every tile
+  constexpr int PER = TC_BK * CPRP / TC_THREADS;
+  constexpr int RPJ = TC_THREADS / CPRP;
+  const int r0 = tid / CPRP, ch = tid % CPRP;
+  const uint32_t g_base = (uint32_t)(r0 * krow + ch * 8);
   auto load_kv = [&](int i) {  // the i-th reachable K/V tile, into stage i % STAGES
     const int k0 = (t_lo + i) * TC_BK;
     const uint32_t st = (uint32_t)(i % STAGES) * TILE;
-    const size_t g0 = (size_t)k0 * krow;
+    const size_t g0 = (size_t)k0 * krow + g_base;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const bool in = k0 + c_row[j] < S;
-      const size_t off = in ? g0 + c_glob[j] : 0;
-      cp_async16(ks + st + c_smem[j], kb + off, in);
-      cp_async16(vs + st + c_smem[j], vb + off, in);
+      const int r = r0 + j * RPJ;
+      const bool in = k0 + r < S && ch < CPR;
+      const size_t off = in ? g0 + (size_t)j * RPJ * krow : 0;
+      cp_async16(ks + st + sw128(r, ch), kb + off, in);
+      cp_async16(vs + st + sw128(r, ch), vb + off, in);
     }
     cp_async_commit();
   };
@@ -668,9 +692,9 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 softcap * LOG2E};
   const int w0 = q0 + warp * 16;  // this warp's first row
   const int qi0 = w0 + lane / 4;  // this thread's rows: qi0 and qi0 + 8
-  float oacc[DH / 2];             // [DT][4]: the m64nDH accumulator fragment
+  float oacc[DHP / 2];            // [DHP / 8][4]: the m64nDHP accumulator fragment
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DHP / 2; ++i) oacc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   float sacc[NT * 4];  // the m64n64 score fragment, [NT][4]; then P
   uint32_t pk[TC_BK / 16][4];  // P in bf16: the A operand of PV
@@ -706,7 +730,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t vst = vs + (uint32_t)((i - 1) % STAGES) * TILE;
 #pragma unroll
       for (int kk = 0; kk < TC_BK / 16; ++kk)
-        wgmma_pv<DH>(oacc, pk[kk], wg_desc(vst + kk * 16 * 128, 64 * 128, 1024));
+        wgmma_pv<DHP>(oacc, pk[kk], vst + kk * 16 * 128);
       wg_commit();
     }
     if (i == ntiles) {
@@ -719,7 +743,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     softmax_step(sacc, m, l, alpha, (t_lo + i) * TC_BK, w0, lane, mk);
     wg_wait<0>();  // PV of tile i - 1 is in O: rescale it to tile i's max
 #pragma unroll
-    for (int j = 0; j < DH / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
+    for (int j = 0; j < DHP / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
   }
 
 #pragma unroll
@@ -776,9 +800,10 @@ int launch_tc(const Args& a, cudaStream_t st) {
   const int nq = (a.S + TC_BQ - 1) / TC_BQ;
   const unsigned grid = (unsigned)a.B * (unsigned)a.H * (unsigned)nq;
   if constexpr (DH >= 64) {
-    const size_t smem = wg_smem_bytes<DH>();
-    if (int err = allow_smem(flash_fwd_wgmma<DH>, smem, done)) return err;
-    flash_fwd_wgmma<DH><<<grid, TC_THREADS, smem, st>>>(
+    constexpr int DHP = (DH + 63) / 64 * 64;  // 224 -> 256
+    const size_t smem = wg_smem_bytes<DHP>();
+    if (int err = allow_smem(flash_fwd_wgmma<DH, DHP>, smem, done)) return err;
+    flash_fwd_wgmma<DH, DHP><<<grid, TC_THREADS, smem, st>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.B, a.S, a.H, a.KH, nq,
         a.causal, a.window, a.softcap, a.scale);
@@ -800,6 +825,8 @@ int dispatch_dh(const Args& a, int Dh, cudaStream_t st) {
     case 32: return TC ? launch_tc<32>(a, st) : launch_f32<32>(a, st);
     case 64: return TC ? launch_tc<64>(a, st) : launch_f32<64>(a, st);
     case 128: return TC ? launch_tc<128>(a, st) : launch_f32<128>(a, st);
+    case 224: return TC ? launch_tc<224>(a, st) : launch_f32<224>(a, st);
+    case 256: return TC ? launch_tc<256>(a, st) : launch_f32<256>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -810,9 +837,9 @@ extern "C" {
 
 // q [B, S, H, Dh], k/v [B, S, KH, Dh], o [B, S, H, Dh], all contiguous and of
 // one dtype (0 = float32: the scalar kernel; 1 = bfloat16: the tensor-core
-// kernel, which also needs 16-byte aligned tensors); Dh in {16, 32, 64, 128};
-// H % KH == 0; window 0 = none; softcap 0 = none. Launches on `stream` and
-// returns cudaGetLastError().
+// kernel, which also needs 16-byte aligned tensors); Dh in {16, 32, 64, 128,
+// 224, 256}; H % KH == 0; window 0 = none; softcap 0 = none. Launches on
+// `stream` and returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                            int S, int H, int KH, int Dh, int dtype, int causal,
                            int window, float softcap, float scale, void* stream) {

@@ -9,11 +9,11 @@ with no valid key is zeros (the TPU kernel's rule).
 ``ops.flash_attention`` picks by the tensor's device: a CUDA tensor
 launches ``flash_attention_cuda`` (the Hopper kernels built from
 ``csrc/flash_attention.cu``: bfloat16 on the tensor cores, by wgmma at
-head widths 64 and 128 and mma.sync at 16 and 32; float32 on scalar FP32
-FMAs, so float32 callers keep float32 exactness), a CPU tensor
-takes ``flash_attention_plain``. The tensor-core kernels round P to bfloat16
-for PV, as FlashAttention does; the reference and the plain version keep P
-in float32.
+head widths 64, 128, 224 (tiles padded to 256) and 256 and by mma.sync at
+16 and 32; float32 on scalar FP32 FMAs, so float32 callers keep float32
+exactness), a CPU tensor takes ``flash_attention_plain``. The tensor-core
+kernels round P to bfloat16 for PV, as FlashAttention does; the reference
+and the plain version keep P in float32.
 The source is compiled on first use by
 ``repro_torch.kernels.build``; nothing is built when the module is imported.
 """
@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels.build import CudaLibrary, require_sm90
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the CUDA kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 224, 256)  # the head widths the CUDA kernel is built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # CUDA launches of this kernel (one per wrapper call on a CUDA tensor)
@@ -115,4 +115,3 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0, scale=N
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1
     return o
-

@@ -1,6 +1,6 @@
 """Attention: GQA with sliding-window / softcap / qk-norm variants (the port of
 the GQA part of the reference's ``models/attention.py``; MLA waits for
-ROADMAP queue A item 10).
+ROADMAP queue A item 10e).
 
 Where the reference runs chunked jnp attention (``mha``), the port runs the
 two attention kernels: prefill is ``flash_attention`` (causal, over the
@@ -37,8 +37,10 @@ from repro_torch.models.layers import (
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def init_attn(gen, cfg, stacked: int = 0, device=None) -> dict:
-    d_in = cfg.d_model
+def init_attn(gen, cfg, d_in: Optional[int] = None, stacked: int = 0, device=None) -> dict:
+    """wq/wk/wv [d_in, N, Dh] and wo [H, Dh, d_in]; ``d_in`` defaults to
+    ``cfg.d_model`` (the hybrid's shared blocks run at 2 * d_model)."""
+    d_in = d_in or cfg.d_model
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = param_dtype(cfg)
     kw = dict(dtype=dt, stacked=stacked, device=device)

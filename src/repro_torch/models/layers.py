@@ -30,14 +30,19 @@ def param_dtype(cfg) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype=torch.bfloat16, stacked: int = 0, device=None) -> torch.Tensor:
-    """Truncated-normal init with 1/sqrt(fan_in) scale; optional leading stack dim."""
+    """Truncated-normal init with 1/sqrt(fan_in) scale; optional leading stack
+    dim. A stack is drawn layer by layer, so the float32 scratch is one
+    layer's (gemma2-27b's FFN stack would need 62 GB of it at once)."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    full = (stacked,) + tuple(shape) if stacked else tuple(shape)
-    w = torch.empty(full, dtype=F32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (w * std).to(dtype)
+    out = torch.empty(((stacked,) if stacked else ()) + tuple(shape), dtype=dtype,
+                      device=device)
+    for w in (out if stacked else (out,)):
+        draw = torch.empty(tuple(shape), dtype=F32, device=device)
+        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        w.copy_(draw * std)
+    return out
 
 
 def zeros_init(shape, dtype=torch.bfloat16, stacked: int = 0, device=None) -> torch.Tensor:

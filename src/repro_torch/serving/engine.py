@@ -10,7 +10,9 @@ semantic cache sitting in front via ModelBackend/EnhancedClient.
 Every slot decodes every tick, live or not: a free slot carries token 0 at
 position 0, as in the reference. Prefill runs at the prompt's exact length
 and leaves the slot as a fresh cache would: a dense model's KV rows past
-the prompt are cleared, an SSM's conv tail and state are overwritten.
+the prompt are cleared, an SSM's conv tail and state are overwritten (a
+hybrid's nested cache, both). The engine serves text prompts; an audio
+model's ``ModelBackend`` refuses them, as the reference's does.
 """
 from __future__ import annotations
 
@@ -46,6 +48,13 @@ class Request:
     # (freeing its decode slot) once this passes — even mid-generation
     deadline_t: Optional[float] = None
     expired: bool = False  # canceled by deadline; out_tokens hold the partial
+
+
+def slot_view(cache, slot: int):
+    """The slot's part of every leaf of the (possibly nested) stacked cache:
+    views [n, 1, ...], so a prefill into them writes the cache in place."""
+    return {k: slot_view(v, slot) if isinstance(v, dict) else v[:, slot:slot + 1]
+            for k, v in cache.items()}
 
 
 def _is_jax_tree(params) -> bool:
@@ -134,7 +143,7 @@ class ServingEngine:
             S = len(req.tokens)
             # exact-length prefill straight into the slot (a view of the
             # stacked cache), which it leaves as a fresh cache would
-            slot_cache = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
+            slot_cache = slot_view(self.cache, slot)
             tokens = torch.as_tensor(req.tokens[None], dtype=torch.int64, device=self.device)
             logits, _ = T.prefill(self.params, self.cfg, {"tokens": tokens}, slot_cache)
             # sample the first generated token directly from prefill logits
@@ -239,6 +248,7 @@ class ModelBackend(LLMBackend):
         # immutable config captured up front so the lock-free tokenize/guard
         # paths never reach through the guarded engine reference
         self._vocab_size = engine.cfg.vocab_size
+        self._modality = engine.cfg.modality
         self._lock = threading.Lock()
 
     def _tokenize(self, prompt: str) -> np.ndarray:
@@ -269,6 +279,8 @@ class ModelBackend(LLMBackend):
         slot, and resolves with ``expired=True`` (the service maps it to a
         typed ``deadline_exceeded`` response)."""
         t0 = time.perf_counter()
+        if self._modality == "audio":
+            raise NotImplementedError("audio backends serve token streams, not text prompts")
         toks = [self._tokenize(p) for p in prompts]
         with self._lock:
             reqs = self.engine.generate_ex(

@@ -207,3 +207,30 @@ def test_split_plan_keeps_short_caches_whole_and_fills_the_card_on_long_ones():
     assert dk.launch_grid(4, 16, 16, 8192, 64, bf16) == ((4 * 16, ns), dk.THREADS)
     # a group of 12 query heads per KV head takes two head chunks of 8
     assert dk.launch_grid(2, 24, 2, 256, 64, bf16) == ((2 * 2 * 2, 1), dk.THREADS)
+
+
+WIDE_CASES = [
+    # B, S, H, KH, window, softcap: zamba2's G = 1, gemma3's G = 2 (windowed), G = 4
+    (1, 70, 4, 4, 0, 0.0),
+    (2, 45, 4, 2, 16, 0.0),
+    (1, 33, 8, 2, 0, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("Dh", [224, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_heads_plain_match_reference_oracles(case, Dh, dtype):
+    """The head widths 224 (zamba2-7b's shared attention) and 256
+    (gemma3-4b): prefill and decode (lengths 1 and full, ragged S) against
+    the reference's oracles."""
+    B, S, H, KH, window, cap = case
+    tol = DTYPES[dtype][2]
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, S, H, KH, Dh, dtype, seed=Dh)
+    got = flash_attention(tq, tk, tv, window=window, softcap=cap)
+    _close(got, j_flash_ref(jq, jk, jv, window=window, softcap=cap), tol)
+    lens = np.array([1, S][:B] if B > 1 else [S], np.int32)
+    got = decode_attention(tq[:, -1], tk, tv, torch.from_numpy(lens), window=window,
+                           softcap=cap)
+    want = j_decode_ref(jq[:, -1], jk, jv, jnp.asarray(lens), window=window, softcap=cap)
+    _close(got, want, tol)

@@ -260,6 +260,12 @@ FLASH_CASES = [
     (2, 512, 4, 1, 64, 128, 50.0),  # MQA + window + softcap
     (1, 128, 4, 4, 128, 0, 30.0),
     (2, 77, 4, 2, 16, 7, 0.0),
+    # the wide heads: zamba2's shared attention (Dh 224, G = 1), gemma3's
+    # (Dh 256, G = 2, local layers windowed), and G = 4 at both
+    (1, 32, 32, 32, 224, 0, 0.0),
+    (2, 100, 8, 2, 224, 48, 30.0),
+    (1, 300, 8, 4, 256, 128, 0.0),
+    (2, 77, 8, 2, 256, 0, 50.0),
 ]
 DECODE_CASES = [
     # B, S, H, KH, Dh, window, softcap, lengths
@@ -267,6 +273,10 @@ DECODE_CASES = [
     (2, 512, 8, 2, 64, 0, 0.0, (256, 170)),
     (2, 512, 4, 1, 64, 128, 50.0, (1, 512)),
     (2, 300, 4, 4, 128, 0, 0.0, (0, 299)),
+    (4, 256, 32, 32, 224, 0, 0.0, (1, 17, 256, 40)),  # zamba2-7b's engine decode
+    (2, 300, 8, 2, 224, 100, 30.0, (1, 300)),
+    (4, 256, 8, 4, 256, 0, 0.0, (1, 17, 256, 40)),  # gemma3-4b's engine decode
+    (2, 512, 8, 2, 256, 128, 50.0, (0, 512)),
 ]
 
 
@@ -382,6 +392,22 @@ def test_decode_head_groups_over_splits(heads, dt, dev):
     _decode_matches_plain(2, 4096, H, KH, 64, (4096, 1234), dt, dev, cap=30.0)
 
 
+@pytest.mark.parametrize("heads", [(8, 8), (8, 4), (8, 2)])
+@pytest.mark.parametrize("Dh", [224, 256])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_wide_heads_over_splits(dt, Dh, heads, dev):
+    """Dh 224 and 256 at G = 1, 2 and 4 over a split [4, 8192] cache:
+    lengths at a split boundary and one row either side of it, 1 and S, and
+    a window across a boundary."""
+    H, KH = heads
+    B, S = 4, 8192
+    ns, rows = dk.split_plan(B, KH, S, Dh, dt)
+    assert ns > 1
+    for lens, window, cap in (((rows, rows - 1, rows + 1, S), 0, 0.0),
+                              ((1, S, rows + 300, 2 * rows + 10), 700, 30.0)):
+        _decode_matches_plain(B, S, H, KH, Dh, lens, dt, dev, window=window, cap=cap)
+
+
 def _misaligned(t):
     """A contiguous copy of ``t`` whose data starts one element past a
     16-byte boundary."""
@@ -409,6 +435,9 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         fk.flash_attention_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                 k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):  # a width outside HEAD_DIMS
+        dk.decode_attention_cuda(q[:, 0, :, :48].contiguous(), k[..., :48].contiguous(),
+                                 k[..., :48].contiguous(), lengths)
     with pytest.raises(TypeError, match="int32"):
         dk.decode_attention_cuda(q[:, 0], k, k, lengths.long())
     with pytest.raises(TypeError):

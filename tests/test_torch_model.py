@@ -145,7 +145,7 @@ def test_other_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_params(dataclasses.replace(tc, family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-7b")
+        get_config("llama4-scout-17b-a16e")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
