@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card (an H100): the cache read path
 and, behind it, the miss path through the LLM serving engines (dense,
-vision, audio, SSM and hybrid models).
+vision, audio, SSM, hybrid and MoE models).
 
     python3 chip_smoke.py [--profile]
-                          [--attention-only | --topk-only | --ssd-only | --arch-only] [--src DIR]
+                          [--attention-only | --topk-only | --ssd-only | --arch-only
+                           | --moe-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -32,23 +33,31 @@ and then serves a burst of requests through the port's real entry points:
 and, one model at a time, the other architectures of the port at full
 depth and width in bfloat16: gemma2-27b, gemma3-4b (head width 256) and
 llava-next-mistral-7b (text) behind ServingEngine, musicgen-large (4
-codebooks) through its own prefill and decode calls.
+codebooks) through its own prefill and decode calls; then the two MoE
+models at full width cut in depth (neither fits one card whole) behind
+ModelBackend -> ServingEngine: llama4-scout-17b-a16e (8 of 48 layers, 16
+experts top-1, B4/B3 at H 40 over KH 8) and deepseek-v3-671b (3 dense + 2
+MoE of 61 layers, 256 experts top-8, MLA: prefill through B4 at q/k width
+192 and value width 128, decode absorbed into the latent space in plain
+torch, without B3).
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 ``build:`` (nvcc seconds per library; B1's stream route and main-path
 grid), ``check:`` per kernel-vs-plain case (B1 with its route, streaming
 or tile, incl. ``lane_rows`` below N, Q 1..64 across the small-Q threshold
 and every k class; B2 = B1 at L = 1, B3, B4 at every head width up to
-256, B5), ``time:`` lines (kernel / plain /
+256 and at (q/k 192, v 128), B5), ``time:`` lines (kernel / plain /
 library device times from a profiler trace, or from CUDA events after a
 ``timer:`` line where every trace came back empty or below the bound, the
 kernel's host rate, and the bound, at the main-path shapes and one longer
 shape each, with the card and its power limit; B1 at Q 1/2/4/8/64 on the
 full bank and on the main path's lane_rows, with its route; B3 and B4 at
-each engine's shapes, B4's with its route, B3's with its splits and grid; B5's with its plan, CUDA kernels per call
+each engine's shapes, B4's with its route, B3's with its splits and grid;
+B4 at (192, 128); B5's with its plan, CUDA kernels per call
 and both its bf16 and FP32 bounds), ``model:`` per model
-(full-width float32 model on the card against the CPU; the six
-architectures of this slice cut to one pattern cycle, the cut printed), per engine
+(full-width float32 model on the card against the CPU; qwen3-8b,
+gemma2-27b, gemma3-4b, zamba2-7b, llava and musicgen cut to one pattern
+cycle, the cut printed), per engine
 ``engine:`` lines (full-width bfloat16 engine: the kernels' launches per
 prefill and per decode step, counted before any timing loop, then prefill
 and decode-step p50 and tokens/s) and ``profile: decode`` (one decode step's
@@ -67,7 +76,13 @@ read's decisions recomputed with the plain version), ``read:`` (p50 of one
 fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
 lookups, each store search one call of ``ops.similarity_topk``), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
-``engine: musicgen-large model-level``,
+``engine: musicgen-large model-level``, then the MoE models' lines, last
+so that the host copies of their float32 lines come after every
+host-bound line above: ``moe:`` per MoE model and token count (one
+full-width MoE layer in float32, card against CPU: expert flips above a
+1e-4 score gap, drop fractions, outputs), their ``model:`` lines (cut to
+4 layers, and to 1 dense + 1 MoE layer), their ``engine:`` and
+``profile:`` lines and an ``engine: ... ModelBackend`` line each,
 ``kernels:`` (launches per kernel on the main path), then a JSON line of
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
@@ -76,8 +91,12 @@ device time by kernel and the device's busy share. ``--attention-only``
 runs only B3 and B4 (build, checks, times, the long-engine line),
 ``--topk-only`` only B1 and B2 (build, checks, times), ``--ssd-only`` only
 B5 (build, checks, times, the long mamba2 prefill line), ``--arch-only``
-only this slice's lines (B3/B4 checks and times, the six ``model:``
-lines, the qwen3-8b and zamba2-7b replays, the other engines), and
+only the dense, frontend and hybrid architectures' lines (B3/B4 checks
+and times, their six ``model:``
+lines, the qwen3-8b and zamba2-7b replays, the other engines),
+``--moe-only`` only the MoE models' lines (B4 at (192, 128) and B3/B4 at
+llama4's shapes, checked and timed; ``moe:``, ``model:``, ``engine:``,
+``profile:``), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -107,6 +126,16 @@ SSM_LLM = "mamba2-1.3b"
 ENGINE_BATCH, ENGINE_SEQ, NEW_TOKENS = 4, 256, 16
 PROMPT = 32  # ModelBackend pads every prompt to 32 tokens
 LONG_SEQ, LONG_PROMPT = 8192, 2048  # the long-engine line: a RAG-sized prompt and cache
+# the MoE models; neither fits one card whole (107.8 B and 671 B parameters),
+# so each runs at full width cut in depth: (layers, leading dense layers),
+# MTP off (it is not on the serving path)
+MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
+MOE_MODEL_CUTS = {MOE_ARCHS[0]: (4, 0), MOE_ARCHS[1]: (2, 1)}  # float32 model: lines
+MOE_ENGINE_CUTS = {MOE_ARCHS[0]: (8, 0), MOE_ARCHS[1]: (5, 3)}  # bfloat16 engines
+MOE_TOKENS = (4, 128)  # the moe: lines' token counts
+# host memory the CPU run of a model: line needs beside its weights' copy
+# (activations of a 32-token prefill, well under 1 GB at full width)
+HOST_HEADROOM = 2e9
 
 
 def smi() -> str:
@@ -449,6 +478,28 @@ def b2_checks(kern, dev):
     return worst
 
 
+# llama4-scout-17b-a16e's attention: H 40 over KH 8 (G = 5, the first group
+# on a path that is no power of two), Dh 128, its local layers' window 8192
+MOE_FLASH_CASES = [
+    # B, S, H, KH, Dh, window, softcap, causal
+    (1, PROMPT, 40, 8, 128, 8192, 0.0, True),
+    (1, 2048, 40, 8, 128, 8192, 0.0, True),
+    (1, 77, 40, 8, 128, 0, 0.0, True),  # its NoPE-global layers: no window
+]
+MOE_DECODE_CASES = [
+    # B, S, H, KH, Dh, window, softcap, lengths
+    (ENGINE_BATCH, ENGINE_SEQ, 40, 8, 128, 8192, 0.0, (1, 17, 256, 40)),
+    (ENGINE_BATCH, 9000, 40, 8, 128, 8192, 0.0, (9000, 8193, 100, 1)),  # the window bites
+    (ENGINE_BATCH, 8192, 40, 8, 128, 0, 0.0, (8192, 1, 5000, 8191)),
+]
+# B4 with its own value width: deepseek-v3-671b's MLA prefill, q/k 192 and
+# v 128, H = KH = 128, causal, scale 1/sqrt(192)
+FLASH_PAIR_CASES = [
+    # B, S, H, Dh, Dv
+    (1, PROMPT, 128, 192, 128),
+    (1, 2048, 128, 192, 128),
+    (2, 77, 128, 192, 128),
+]
 FLASH_CASES = [
     # B, S, H, KH, Dh, window, softcap, causal
     (1, PROMPT, 16, 16, 64, 0, 0.0, True),  # the main path's prefill
@@ -466,7 +517,7 @@ FLASH_CASES = [
     (1, 2048, 32, 32, 224, 0, 0.0, True),
     (2, 300, 8, 2, 224, 100, 50.0, True),  # G = 4, ragged, window + softcap
     (2, 100, 8, 2, 256, 0, 30.0, False),  # G = 4, non-causal
-] + [  # every head width, S around and past the tile: plain, window + softcap, non-causal
+] + MOE_FLASH_CASES + [  # every head width, S around and past the tile: plain, window + softcap, non-causal
     (1, S, 4, 2, Dh, w, cap, causal) for Dh in (16, 32, 64, 128, 224, 256)
     for S in (1, 63, 65, 100, 2048)
     for w, cap, causal in ((0, 0.0, True), (48, 30.0, True), (0, 0.0, False))
@@ -495,7 +546,7 @@ DECODE_CASES = [
     (2, 300, 8, 8, 256, 0, 0.0, (0, 299)),
     (ENGINE_BATCH, 8192, 32, 32, 224, 0, 0.0, (8192,) * 4),
     (ENGINE_BATCH, 8192, 8, 4, 256, 1024, 0.0, (8192, 1, 5000, 8191)),
-]
+] + MOE_DECODE_CASES
 
 
 def decode_split_cases(dk, dtype, B=ENGINE_BATCH, S=8192, H=16, Dh=64, KH=None):
@@ -519,9 +570,12 @@ def wide_split_cases(dk, dtype):
             + decode_split_cases(dk, dtype, H=8, KH=4, Dh=256))
 
 
-def attention_checks(dev):
+def attention_checks(dev, flash_cases=FLASH_CASES, decode_cases=DECODE_CASES,
+                     pair_cases=FLASH_PAIR_CASES, split=True):
     """B4 (flash) and B3 (decode) against their plain versions on the card,
-    float32 at 2e-5 and bfloat16 at 2e-2. Returns the worst error of each."""
+    float32 at 2e-5 and bfloat16 at 2e-2: ``flash_cases``, B4 with its own
+    value width at ``pair_cases``, ``decode_cases`` and, with ``split``,
+    the split-boundary cases. Returns the worst error of each."""
     import torch
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -529,14 +583,29 @@ def attention_checks(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {"flash": 0.0, "decode": 0.0}
-    skipped = sorted({c[4] for c in FLASH_CASES + DECODE_CASES
+    skipped = sorted({c[4] for c in flash_cases + decode_cases
                       if c[4] not in fk.HEAD_DIMS or c[4] not in dk.HEAD_DIMS})
     if skipped:  # an older tree measured with --src
         print(f"check: head widths {skipped} skipped: this tree's kernels build "
               f"{fk.HEAD_DIMS} (B4) and {dk.HEAD_DIMS} (B3)")
+    pairs = getattr(fk, "WIDTH_PAIRS", ())
+    if any(c[3:] not in pairs for c in pair_cases):
+        print(f"check: B4 width pairs skipped: this tree's kernel builds {pairs}")
     for dt, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
         tag = "f32" if dt == torch.float32 else "bf16"
-        for B, S, H, KH, Dh, w, cap, causal in FLASH_CASES:
+        for B, S, H, Dh, Dv in pair_cases:
+            if (Dh, Dv) not in pairs:
+                continue
+            q, k = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(dt) for _ in "qk")
+            v = torch.randn((B, S, H, Dv), generator=g, device=dev).to(dt)
+            got = fk.flash_attention_cuda(q, k, v, scale=Dh ** -0.5)
+            want = fk.flash_attention_plain(q, k, v, scale=Dh ** -0.5)
+            err = close_check(f"B4 flash {tag} B={B} S={S} H={H} KH={H} q/k={Dh} v={Dv} "
+                              f"causal=True (MLA prefill)", got, want, tol)
+            worst["flash"] = max(worst["flash"], err)
+            worst[f"flash {tag}"] = max(worst.get(f"flash {tag}", 0.0), err)
+            del q, k, v, got, want
+        for B, S, H, KH, Dh, w, cap, causal in flash_cases:
             if Dh not in fk.HEAD_DIMS:
                 continue
             q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(dt)
@@ -548,10 +617,10 @@ def attention_checks(dev):
             err = close_check(name, got, want, tol)
             worst["flash"] = max(worst["flash"], err)
             worst[f"flash {tag}"] = max(worst.get(f"flash {tag}", 0.0), err)
-        split = decode_split_cases(dk, dt)
-        if 224 in dk.HEAD_DIMS:
+        split = decode_split_cases(dk, dt) if split else []
+        if split and 224 in dk.HEAD_DIMS:
             split += wide_split_cases(dk, dt)
-        for B, S, H, KH, Dh, w, cap, lens in DECODE_CASES + split:
+        for B, S, H, KH, Dh, w, cap, lens in decode_cases + split:
             if Dh not in dk.HEAD_DIMS:
                 continue
             q = torch.randn((B, H, Dh), generator=g, device=dev).to(dt)
@@ -584,7 +653,9 @@ FLASH_TIMES = [
     ("gemma3-4b", 1, PROMPT, 8, 4, 256, 0), ("gemma3-4b", 1, 2048, 8, 4, 256, 0),
     ("gemma3-4b local", 1, 2048, 8, 4, 256, 1024),
     ("zamba2-7b", 1, PROMPT, 32, 32, 224, 0), ("zamba2-7b", 1, 2048, 32, 32, 224, 0),
-]
+] + [(MOE_ARCHS[0], 1, S, 40, 8, 128, 8192) for S in (PROMPT, 2048)]
+# B4 with its own value width: (model, B, S, H, Dh, Dv), H = KH
+PAIR_TIMES = [(MOE_ARCHS[1], 1, S, 128, 192, 128) for S in (PROMPT, 2048)]
 # B3 time lines: (model, B, S, H, KH, Dh, window, lengths)
 ENGINE_LENS = (48, 40, 33, 1)  # the traffic's lengths at a decode step
 DECODE_TIMES = [
@@ -597,16 +668,20 @@ DECODE_TIMES = [
     ("gemma3-4b local", ENGINE_BATCH, 8192, 8, 4, 256, 1024, (8192,) * 4),
     ("zamba2-7b", ENGINE_BATCH, ENGINE_SEQ, 32, 32, 224, 0, ENGINE_LENS),
     ("zamba2-7b", ENGINE_BATCH, 8192, 32, 32, 224, 0, (8192,) * 4),
-]
+] + [(MOE_ARCHS[0], ENGINE_BATCH, ENGINE_SEQ, 40, 8, 128, 8192, ENGINE_LENS),
+     (MOE_ARCHS[0], ENGINE_BATCH, 8192, 40, 8, 128, 8192, (8192,) * 4),
+     (MOE_ARCHS[0] + " global", ENGINE_BATCH, 8192, 40, 8, 128, 0, (8192,) * 4)]
 
 
-def flash_bound(B, S, H, KH, Dh, window):
+def flash_bound(B, S, H, KH, Dh, window, Dv=None):
     """The card's least time for causal prefill attention: q, k, v read once
-    and o written once, against 4 Dh FLOP per (query, key) pair a query
-    attends to (the causal pairs, cut to the window)."""
+    and o written once, against 2 (Dh + Dv) FLOP per (query, key) pair a
+    query attends to (the causal pairs, cut to the window); Dv = Dh but for
+    MLA's value width."""
+    Dv = Dv or Dh
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    return _bound(2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh),
-                  4 * B * H * Dh * pairs, BF16_FLOP_PER_S)
+    return _bound(2 * (B * S * H * (Dh + Dv) + B * S * KH * (Dh + Dv)),
+                  2 * B * H * (Dh + Dv) * pairs, BF16_FLOP_PER_S)
 
 
 def decode_bound(B, H, KH, Dh, window, lens):
@@ -618,12 +693,14 @@ def decode_bound(B, H, KH, Dh, window, lens):
                   4 * H * Dh * rows, BF16_FLOP_PER_S)
 
 
-def attention_times(dev, gpu):
+def attention_times(dev, gpu, flash_times=FLASH_TIMES, decode_times=DECODE_TIMES,
+                    pair_times=PAIR_TIMES):
     """Kernel, plain and library device times (bfloat16, the engines'
     dtype), and the kernel's host rate, for B4 at each engine's prefill
-    (B=1, S=32) and at S=2048, and for B3 at each engine's decode (B=4,
-    S=256, the traffic's lengths) and at S=8192 (``FLASH_TIMES``,
-    ``DECODE_TIMES``); bounds count the keys each query really attends to.
+    (B=1, S=32) and at S=2048, B4 with MLA's value width at the same S, and
+    for B3 at each engine's decode (B=4, S=256, the traffic's lengths) and
+    at S=8192 (``FLASH_TIMES``, ``PAIR_TIMES``, ``DECODE_TIMES``); bounds
+    count the keys each query really attends to.
     The library is ``scaled_dot_product_attention`` (a yardstick only: the
     port never calls it). Shapes whose head width this
     tree's kernels do not build are skipped. Returns the figures of the
@@ -637,7 +714,25 @@ def attention_times(dev, gpu):
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     bf16 = torch.bfloat16
     out = {}
-    for model, B, S, H, KH, Dh, w in FLASH_TIMES:
+    for model, B, S, H, Dh, Dv in pair_times:
+        if (Dh, Dv) not in getattr(fk, "WIDTH_PAIRS", ()):
+            continue
+        q, k = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(bf16) for _ in "qk")
+        v = torch.randn((B, S, H, Dv), generator=g, device=dev).to(bf16)
+        bound, by = flash_bound(B, S, H, H, Dh, 0, Dv)
+        sc = Dh ** -0.5
+        k_ms = device_ms(lambda: fk.flash_attention_cuda(q, k, v, scale=sc), bound)
+        h_ms = host_ms(lambda: fk.flash_attention_cuda(q, k, v, scale=sc))
+        p_ms = device_ms(lambda: fk.flash_attention_plain(q, k, v, scale=sc), bound, iters=5)
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, scale=sc),
+            bound)
+        print(f"time: flash_attention {model} bf16 B={B} S={S} H={H} KH={H} q/k={Dh} v={Dv} "
+              f"window=0 causal route=wgmma (q/k tiles {Dh}, v tiles {Dv}) kernel_ms={k_ms:.4f} "
+              f"kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
+        del q, k, v
+    for model, B, S, H, KH, Dh, w in flash_times:
         if Dh not in fk.HEAD_DIMS:
             continue
         q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev).to(bf16)
@@ -660,7 +755,7 @@ def attention_times(dev, gpu):
               f"window={w} causal route={route} kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} "
               f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.3f} [{gpu}]")
-    for model, B, S, H, KH, Dh, w, lens in DECODE_TIMES:
+    for model, B, S, H, KH, Dh, w, lens in decode_times:
         if Dh not in dk.HEAD_DIMS:
             continue
         q = torch.randn((B, H, Dh), generator=g, device=dev).to(bf16)
@@ -830,31 +925,81 @@ def b2_times(kern, dev, gpu, Q=1):
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
 
 
-def model_check(dev, name=LLM, steps=4, layers=None, patches=0):
+def cut_config(name, layers=None, dense=0, dtype=None):
+    """``get_config(name)`` in ``dtype``, cut to ``layers`` layers; a MoE
+    model's cut keeps ``dense`` leading dense layers and drops the MTP head
+    (training only)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    kw = {"dtype": dtype} if dtype else {}
+    if layers:
+        kw["num_layers"] = layers
+        if cfg.moe is not None:
+            kw.update(moe=dataclasses.replace(cfg.moe, first_k_dense=dense), mtp_depth=0)
+    return dataclasses.replace(cfg, **kw)
+
+
+def cut_text(cfg):
+    """How ``cfg`` is cut from its architecture's full depth."""
+    from repro_torch.configs import get_config
+
+    full = get_config(cfg.name)
+    text = f"layers={cfg.num_layers}"
+    if cfg.num_layers != full.num_layers:
+        text += f" (cut from {full.num_layers})"
+    if cfg.moe is not None:
+        fkd = cfg.moe.first_k_dense
+        text += (f" = {fkd} dense + {cfg.num_layers - fkd} MoE (full: {full.moe.first_k_dense}"
+                 f" + {full.num_layers - full.moe.first_k_dense}) mtp_depth={cfg.mtp_depth}")
+    return text
+
+
+def host_available_bytes():
+    """MemAvailable of this host (/proc/meminfo), in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def model_check(dev, name=LLM, steps=4, layers=None, patches=0, dense=0):
     """The full-width model ``name`` in float32 with one set of weights, on
     the card (kernels, TF32 off) and on the CPU (plain versions): one
     32-token prefill (after a prefix of ``patches`` projected patch
     embeddings for a vision model; [1, K, 32] codebook tokens for audio) and
     ``steps`` teacher-forced decode steps. ``layers`` cuts the depth (for
     the hybrid: Mamba2 blocks, one group of ``hybrid_period`` and its shared
-    block). Raises if a logit differs by more than ``MODEL_TOL``, or if
-    greedy tokens differ where the CPU logits' top-2 gap exceeds 2e-3. The
-    weights are drawn on the card (fast at full width) and copied to the
-    CPU."""
-    import dataclasses
-
+    block; for a MoE model ``dense`` of them dense, ``cut_config``). Raises
+    if a logit differs by more than ``MODEL_TOL``, or if greedy tokens differ
+    where the CPU logits' top-2 gap exceeds 2e-3. The weights are drawn on
+    the card (fast at full width) and copied to the CPU; where this host
+    cannot hold the copy, a MoE model is cut to half its layers (at least
+    one MoE layer) and the line says why."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(name), dtype="float32")
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = cut_config(name, layers, dense, "float32")
     cpu = torch.device("cpu")
     params_dev = T.init_params(cfg, SEED, device=dev)
+    why = ""
+    while cfg.moe is not None:
+        need = sum(x.numel() * x.element_size() for x in _leaves(params_dev))
+        avail = host_available_bytes()
+        if need + HOST_HEADROOM < avail or cfg.num_layers == 1:
+            break
+        fkd = cfg.moe.first_k_dense // 2
+        cfg = cut_config(name, max(cfg.num_layers // 2, fkd + 1), fkd, "float32")
+        why += (f" [host RAM {avail / 1e9:.1f} GB available cannot hold the {need / 1e9:.1f} GB "
+                f"copy: cut to {cfg.num_layers} layers]")
+        del params_dev
+        free_card()
+        params_dev = T.init_params(cfg, SEED, device=dev)
     params_cpu = _tree_to(params_dev, cpu)
     rng = np.random.default_rng(SEED)
     lead = (1, cfg.num_codebooks) if cfg.modality == "audio" else (1,)
@@ -881,15 +1026,17 @@ def model_check(dev, name=LLM, steps=4, layers=None, patches=0):
         decided = (top2[..., 0] - top2[..., 1]) > 2e-3
         flips += int((decided & (got.argmax(-1) != want.argmax(-1))).sum())
     finite = all(bool(torch.isfinite(x).all()) for x in runs[0])
-    cut = f"layers={cfg.num_layers}"
-    if layers:
-        cut += f" (cut from {get_config(name).num_layers})"
+    cut = cut_text(cfg) + why
     if cfg.family == "hybrid":
         cut += f" = {cfg.num_layers // cfg.hybrid_period} group(s) of {cfg.hybrid_period} " \
                f"Mamba2 blocks + a shared block"
     extra = f" vision_patches={patches}" if patches else ""
     if cfg.modality == "audio":
         extra += f" codebooks={cfg.num_codebooks} logits={list(runs[0][0].shape)}"
+    if cfg.mla is not None:
+        extra += f" mla=q/k {cfg.mla.qk_head_dim} v {cfg.mla.v_head_dim}"
+    if cfg.moe is not None:
+        extra += f" experts={cfg.moe.num_experts} top_k={cfg.moe.top_k}"
     print(f"model: {name} float32 {cut} d_model={cfg.d_model} head_dim={cfg.head_dim}{extra} "
           f"params={sum(x.numel() for x in _leaves(params_cpu))} prefill S={PROMPT} + "
           f"{steps} decode steps, card (kernels) vs CPU (plain) max_abs_logit_err={worst:.3e} "
@@ -926,6 +1073,9 @@ def path_kernels(cfg):
         groups = cfg.num_layers // cfg.hybrid_period
         return {"ssd_scan": ("prefill", cfg.num_layers), "flash_attention": ("prefill", groups),
                 "decode_attention": ("decode_step", groups)}
+    if cfg.mla is not None:  # MLA decodes in the latent space, without B3
+        return {"flash_attention": ("prefill", cfg.num_layers),
+                "decode_attention": ("decode_step", 0)}
     return {"flash_attention": ("prefill", cfg.num_layers),
             "decode_attention": ("decode_step", cfg.num_layers)}
 
@@ -973,12 +1123,13 @@ def p50_ms(fn, n=15, warmup=3):
     return statistics.median(ts[warmup:])
 
 
-def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
-    """ServingEngine for ``name`` at full width in bfloat16 on the card:
-    prompts of ``lengths`` through ``generate``; the kernels' launches
-    against the engine's own counts (printed before any timing loop), then
-    prefill and decode-step p50 and tokens/s, and where one decode step's
-    time goes. Returns the engine, warm, for the traffic."""
+def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20), cfg=None):
+    """ServingEngine for ``name`` (``cfg``, default its full config) at full
+    width in bfloat16 on the card: prompts of ``lengths`` through
+    ``generate``; the kernels' launches against the engine's own counts
+    (printed before any timing loop), then prefill and decode-step p50 and
+    tokens/s, and where one decode step's time goes. Returns the engine,
+    warm, for the traffic."""
     import numpy as np
     import torch
 
@@ -986,7 +1137,7 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine, slot_view
 
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ, seed=SEED,
                            device=dev)
@@ -1028,7 +1179,8 @@ def engine_phase(dev, gpu, name=LLM, lengths=(5, 32, 12, 27, 9, 20)):
         return T.decode_step(engine.params, cfg, step_toks, step_pos, engine.cache)
 
     pre_ms, dec_ms = p50_ms(prefill), p50_ms(decode)
-    print(f"engine: {name} bfloat16 params={sum(x.numel() for x in _leaves(engine.params))} "
+    cut = f"{cut_text(cfg)} " if cfg != get_config(name) else ""
+    print(f"engine: {name} bfloat16 {cut}params={sum(x.numel() for x in _leaves(engine.params))} "
           f"max_batch={ENGINE_BATCH} max_seq={ENGINE_SEQ} setup_s={setup_s:.1f} "
           f"prompts={[len(p) for p in prompts]} new_tokens={NEW_TOKENS} "
           f"decode_steps={steps} wall_s={wall:.3f} "
@@ -1184,13 +1336,18 @@ def profile_decode(decode, gpu, name, steps=5):
         print(f"profile: decode step {name}: the trace holds no device time; busy share not "
               f"measured [{gpu}]")
         return
-    groups = {"decode_attention": 0.0, "matmul": 0.0, "elementwise": 0.0, "other": 0.0}
+    groups = {"decode_attention": 0.0, "matmul": 0.0, "sort_scatter_gather": 0.0,
+              "elementwise": 0.0, "other": 0.0}
     for kname, (ms, _) in by_name.items():
         low = kname.lower()
         if "decode_fwd" in kname:
             groups["decode_attention"] += ms
         elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90")):
             groups["matmul"] += ms
+        elif any(t in low for t in ("sort", "scatter", "gather", "index", "scan")):
+            # the MoE dispatch (argsorts, the bincount, the cumsum, the slot
+            # scatter and the gathers); embedding lookups and cache writes too
+            groups["sort_scatter_gather"] += ms
         elif "elementwise" in low or "vectorized" in low:
             groups["elementwise"] += ms
         else:
@@ -1587,10 +1744,124 @@ def audio_phase(dev, gpu, name=AUDIO_LLM):
 
 
 def arch_models(dev):
-    """This slice's ``model:`` lines (float32, layer-cut, card vs CPU)."""
+    """The six architectures' ``model:`` lines (float32, layer-cut, card vs
+    CPU)."""
     for name, layers, patches in ARCH_MODEL_CHECKS:
         model_check(dev, name, layers=layers, patches=patches)
         free_card()
+
+
+def moe_checks(dev, gpu):
+    """One full-width MoE layer of each MoE model (``moe.init_moe`` at
+    d_model 5120 with 16 experts top-1 softmax, or 7168 with 256 experts
+    top-8 sigmoid_bias and a nonzero bias) in float32, TF32 off, on the card
+    and on the CPU, over the same seeded activations (``MOE_TOKENS``):
+    expert ids equal wherever the CPU's gap between the k-th and the
+    (k+1)-th routing score exceeds 1e-4 (flips counted, limit 0), the drop
+    fraction equal, outputs within ``MODEL_TOL``. Weights are drawn on the
+    card and copied to the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    for name in MOE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = cut_config(name, dtype="float32")
+        mo = cfg.moe
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p_dev = moe.init_moe(gen, cfg, device=dev)
+        if "router_bias" in p_dev:  # the trainer's balancing bias, nonzero
+            p_dev["router_bias"] = 0.05 * torch.randn(mo.num_experts, generator=gen, device=dev)
+        p_cpu = _tree_to(p_dev, torch.device("cpu"))
+        rng = np.random.default_rng(SEED + 13)
+        for T in MOE_TOKENS:
+            x = rng.standard_normal((1, T, cfg.d_model)).astype(np.float32)
+            runs = []
+            for p, d in ((p_dev, dev), (p_cpu, torch.device("cpu"))):
+                xd = torch.as_tensor(x, device=d)
+                y, m = moe.moe_ffn(p, cfg, xd)
+                idx, _ = moe._route(p, cfg, xd[0])
+                runs.append((y.cpu(), float(m["moe_drop_fraction"]), idx.cpu()))
+            (y1, drop1, idx1), (y2, drop2, idx2) = runs
+            logits = torch.as_tensor(x[0]) @ p_cpu["router"]
+            scores = (torch.sigmoid(logits) + p_cpu["router_bias"] if "router_bias" in p_cpu
+                      else torch.softmax(logits, -1))
+            top = torch.sort(scores, -1, descending=True).values
+            decided = (top[:, mo.top_k - 1] - top[:, mo.top_k]) > 1e-4
+            flips = int((decided & (idx1 != idx2).any(-1)).sum())
+            err = float((y1 - y2).abs().max())
+            ok = flips == 0 and drop1 == drop2 and err <= MODEL_TOL and bool(
+                torch.isfinite(y1).all())
+            print(f"moe: {name} float32 one layer d_model={cfg.d_model} experts={mo.num_experts} "
+                  f"top_k={mo.top_k} router={mo.router} T={T} "
+                  f"capacity={moe.capacity_of(cfg, T)} expert_flips={flips} (CPU gap > 1e-4; "
+                  f"limit 0; {int((~decided).sum())} tokens within 1e-4) "
+                  f"drop_fraction card={drop1:.6f} cpu={drop2:.6f} max_abs_err={err:.3e} "
+                  f"tol={MODEL_TOL} {time.perf_counter() - t0:.1f} s -> "
+                  f"{'ok' if ok else 'FAIL'} [{gpu}]")
+            if not ok:
+                raise AssertionError(f"the MoE layer on the card disagrees with the CPU: {name}")
+        del p_dev, p_cpu
+        free_card()
+
+
+def moe_models(dev):
+    """The MoE models' ``model:`` lines (float32, full width, layer-cut by
+    ``MOE_MODEL_CUTS``, card vs CPU; 2 decode steps, each of which reads
+    every expert's weights on the CPU)."""
+    for name in MOE_ARCHS:
+        layers, dense = MOE_MODEL_CUTS[name]
+        model_check(dev, name, steps=2, layers=layers, dense=dense)
+        free_card()
+
+
+def moe_engines(dev, gpu):
+    """Each MoE model alone at full width in bfloat16, cut by
+    ``MOE_ENGINE_CUTS``, behind ``ModelBackend`` -> ``ServingEngine``: the
+    ``engine:`` and ``profile: decode step`` lines, then one batch of
+    ``ModelBackend`` prompts with its launches against the engine's counts
+    (flash per layer and prefill; decode per layer and step for llama4, none
+    for deepseek's absorbed MLA decode)."""
+    import torch
+
+    from repro_torch.serving.engine import ModelBackend
+
+    for name in MOE_ARCHS:
+        cfg = cut_config(name, *MOE_ENGINE_CUTS[name])
+        engine = engine_phase(dev, gpu, name, cfg=cfg)
+        backend = ModelBackend(name, engine)
+        prompts = [f"question {i} about which expert serves the token" for i in range(6)]
+        torch.cuda.synchronize()
+        reset_engine_launches()
+        m0 = dict(engine.metrics)
+        t0 = time.perf_counter()
+        resps = backend.generate_batch(prompts, max_tokens=NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        steps = engine.metrics["decode_steps"] - m0["decode_steps"]
+        got, want = engine_launches(), expected_launches(cfg, len(prompts), steps)
+        print(f"engine: {name} ModelBackend prompts={len(prompts)} "
+              f"tokens_out={[r.tokens_out for r in resps]} decode_steps={steps} "
+              f"wall_s={wall:.3f} launches={got} [{gpu}]")
+        if got != want or any(r.tokens_out != NEW_TOKENS or not r.text for r in resps):
+            raise AssertionError(f"{name} behind ModelBackend: launches {got} != {want} or "
+                                 f"short answers")
+        del engine, backend, resps
+        free_card()
+
+
+def moe_slice(dev, gpu, checks=False):
+    """The MoE models' lines: with ``checks`` (``--moe-only``) first B4 at
+    (192, 128) and B3/B4 at llama4's shapes against their plain versions and
+    timed (the default run has them among its own checks and times), then
+    ``moe:``, ``model:``, ``engine:`` and ``profile:``."""
+    if checks:
+        attention_checks(dev, MOE_FLASH_CASES, MOE_DECODE_CASES, FLASH_PAIR_CASES, split=False)
+        attention_times(dev, gpu, [t for t in FLASH_TIMES if t[0].split()[0] in MOE_ARCHS],
+                        [t for t in DECODE_TIMES if t[0].split()[0] in MOE_ARCHS], PAIR_TIMES)
+    moe_checks(dev, gpu)
+    moe_models(dev)
+    moe_engines(dev, gpu)
 
 
 def arch_rest(dev, gpu):
@@ -1620,6 +1891,10 @@ def main() -> int:
                     help="only the qwen3-8b, gemma2-27b, gemma3-4b, llava, musicgen and "
                          "zamba2-7b phases: B3/B4 checks and times, their model:, engine:, "
                          "long and traffic: lines, then stop")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="only the llama4-scout and deepseek-v3 phases: B4 at (192, 128) and "
+                         "B3/B4 at llama4's shapes (checks and times), their moe:, model:, "
+                         "engine: and profile: lines, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -1644,8 +1919,12 @@ def main() -> int:
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
-    build_all("attention" if args.attention_only else "topk" if args.topk_only
+    build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
               else "ssd" if args.ssd_only else None)
+    if args.moe_only:
+        moe_slice(dev, gpu, checks=True)
+        print(f"moe-only: done [{gpu}]")
+        return 0
     if args.ssd_only:
         from repro_torch.configs import get_config
         from repro_torch.models import transformer as T
@@ -1730,6 +2009,10 @@ def main() -> int:
     del engine, ssm_engine, enc
     free_card()
     arch_rest(dev, gpu)
+    # the MoE models last: their float32 lines copy up to 56 GB to the host,
+    # and the host-bound lines above (engine:, traffic:, read:) run before
+    # that, in the same order and state as before these phases were added
+    moe_slice(dev, gpu)
     print("kernels: " + " ".join(f"{k} launches={v}" for k, v in launches.items()))
     figures = []
     for name, source, replaces in (

@@ -1,7 +1,9 @@
 """Model configurations the port supports: ``get_config("<arch-id>")``."""
 from repro_torch.configs import (
+    deepseek_v3_671b,
     gemma2_27b,
     gemma3_4b,
+    llama4_scout,
     llava_next_mistral_7b,
     mamba2_1_3b,
     musicgen_large,
@@ -20,21 +22,14 @@ _MODULES = {
     "mamba2-1.3b": mamba2_1_3b,
     "musicgen-large": musicgen_large,
     "zamba2-7b": zamba2_7b,
+    "llama4-scout-17b-a16e": llama4_scout,
+    "deepseek-v3-671b": deepseek_v3_671b,
 }
-
-# the reference's other architectures: the MoE family (llama4-scout, ROADMAP
-# queue A item 10d) and MLA + MTP (deepseek-v3, item 10e)
-NOT_PORTED = ("deepseek-v3-671b", "llama4-scout-17b-a16e")
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue A items 10d and 10e); "
-            f"ported: {ARCH_NAMES}"
-        )
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = _MODULES[name]

@@ -2,13 +2,11 @@
 fields the port reads.
 
 Every architecture is one frozen ``ModelConfig``; reduced smoke variants
-keep the family mechanisms at tiny widths. The dense, SSM, hybrid, vision
-and audio families run here, so the fields of the other families and of the
-reference's trainer and TPU programs are left out; each comes back with the
-slice that reads it:
+keep the family mechanisms at tiny widths. Every family of the
+reference runs here (dense, MoE with MLA, SSM, hybrid, vision and audio;
+the MTP head's weights, not its training-only forward), so only the fields of the reference's trainer and TPU
+programs are left out; each comes back with the slice that reads it:
 
-- the MoE/MLA sub-configs and ``mtp_depth`` with the MoE and MLA families
-  (ROADMAP queue A items 10d and 10e);
 - ``max_seq_len``, the training knobs (``remat``, ``remat_policy``,
   ``loss_chunk``, ``optimizer``, ``grad_accum``) and the parameter counts
   (``total_params``, ``active_params_per_token``) with the training port;
@@ -25,6 +23,37 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts (the reference's ``MoEConfig``)."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router: str = "softmax"  # "softmax" | "sigmoid_bias" (DeepSeek aux-loss-free)
+    routed_scaling: float = 1.0
+    first_k_dense: int = 0  # leading dense (non-MoE) layers
+    d_ff_dense: int = 0  # d_ff of those leading dense layers
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention widths (the reference's ``MLAConfig``)."""
+
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 / SSD block widths (the reference's ``SSMConfig``)."""
 
@@ -36,13 +65,13 @@ class SSMConfig:
     chunk_size: int = 256
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm | hybrid | vlm | audio (moe waits for ROADMAP queue A item 10d)
+    family: str  # dense | moe | vlm | ssm | audio | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -70,6 +99,8 @@ class ModelConfig:
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
 
     # --- family sub-configs --------------------------------------------------
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # --- hybrid (zamba2) ------------------------------------------------------
@@ -81,6 +112,9 @@ class ModelConfig:
     num_codebooks: int = 0  # musicgen: EnCodec codebooks
     vision_patches: int = 0  # llava stub: number of patch embeddings per image
     d_frontend: int = 0  # dim of stub frontend embeddings
+
+    # --- multi-token prediction (deepseek-v3) ---------------------------------
+    mtp_depth: int = 0
 
     # --- numerics -------------------------------------------------------------
     dtype: str = "bfloat16"

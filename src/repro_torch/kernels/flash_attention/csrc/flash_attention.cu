@@ -2,9 +2,13 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // :: flash_attention_kernel (body _flash_kernel). q [B, S, H, Dh] attends to
-// k/v [B, S, KH, Dh] (query head h reads KV head h / G, G = H / KH) under an
-// optional causal mask, an optional sliding window (key > query - window)
-// and an optional tanh logit softcap; o [B, S, H, Dh] has q's dtype. Scores,
+// k [B, S, KH, Dh] and v [B, S, KH, Dv] (query head h reads KV head h / G,
+// G = H / KH) under an optional causal mask, an optional sliding window (key >
+// query - window) and an optional tanh logit softcap; o [B, S, H, Dv] has q's
+// dtype. Dv = Dh at every head width, or (Dh, Dv) = (192, 128): DeepSeek-V3's
+// MLA prefill, whose keys are 128 latent-expanded columns and 64 rope columns
+// and whose values are 128 wide (the reference's mha takes v's width apart
+// from q's). Scores,
 // the running max m, the running sum l and the output accumulator are
 // float32. The sentinel is NEG = -2.3e38 and the output is
 // acc / max(l, 1e-30), so a row with no valid key gives zeros, as on the TPU.
@@ -28,6 +32,12 @@
 //     32-wide row is narrower than the 128-byte swizzle atom the wgmma
 //     kernel's tiles are built from; no model on the port's paths has it
 //     but the smoke configurations).
+//   - bfloat16, (Dh, Dv) = (192, 128) -> flash_fwd_wgmma with 192-wide Q and K
+//     tiles (exactly three 64-column swizzle atoms, no padding; QK^T runs 12
+//     k-steps) and 128-wide V tiles (PV at n = 128, as at Dh 128): 3 stages
+//     of K and V and the Q tile take 145 KB, one block an SM. Its K and V
+//     copies are mapped apart, since a 24-chunk row does not divide the 128
+//     threads.
 //   - float32 -> flash_fwd_f32, scalar FP32 FMAs. Every tensor-core route
 //     rounds float32 inputs (TF32 keeps ~3 decimal digits), and the float32
 //     callers (the models' parity checks) hold the port to 2e-5 and 1e-3.
@@ -73,8 +83,8 @@
 // flash_fwd_f32: one 256-thread block per (b, h, 64-row query tile) walking
 // the K/V tiles staged through shared memory; four threads share a query row
 // (keys c, c+4, ...; output dims c, c+4, ...) and reduce by shuffles. At
-// Dh 224 and 256 its tiles take 189 and 214 KB of shared memory: one block
-// an SM.
+// Dh 224 and 256 its tiles take 189 and 214 KB of shared memory, at
+// (192, 128) 145 KB: one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,23 +98,25 @@ constexpr int THREADS = BQ * TPR;  // 256
 constexpr int KPT = BK / TPR;     // keys scored per thread per tile
 constexpr float NEG = -2.3e38f;
 
-template <int DH>
+template <int DH, int DV>
 constexpr size_t smem_bytes() {
-  return (size_t)((BQ + 2 * BK) * (DH + 1) + BQ * (BK + 1)) * sizeof(float);
+  return (size_t)((BQ + BK) * (DH + 1) + BK * (DV + 1) + BQ * (BK + 1)) * sizeof(float);
 }
 
-template <int DH>
+// DH is q's and k's head width, DV v's and o's
+template <int DH, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int S, int H, int KH,
               int nq, int causal, int window, float softcap, float scale) {
   constexpr int LD = DH + 1;
-  constexpr int DPT = DH / TPR;  // output dims per thread
+  constexpr int LDV = DV + 1;
+  constexpr int DPT = DV / TPR;  // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][LD]
   float* ks = qs + BQ * LD;      // [BK][LD]
-  float* vs = ks + BK * LD;      // [BK][LD]
-  float* ps = vs + BK * LD;      // [BQ][BK + 1]
+  float* vs = ks + BK * LD;      // [BK][LDV]
+  float* ps = vs + BK * LDV;     // [BQ][BK + 1]
 
   const int qt = blockIdx.x % nq;
   const int bh = blockIdx.x / nq;
@@ -118,9 +130,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qi = q0 + r;
   const size_t qrow = (size_t)H * DH;
   const size_t krow = (size_t)KH * DH;
+  const size_t vrow = (size_t)KH * DV;
+  const size_t orow = (size_t)H * DV;
   const float* qb = q + (size_t)b * S * qrow + (size_t)h * DH;
   const float* kb = k + (size_t)b * S * krow + (size_t)kh * DH;
-  const float* vb = v + (size_t)b * S * krow + (size_t)kh * DH;
+  const float* vb = v + (size_t)b * S * vrow + (size_t)kh * DV;
 
   for (int e = tid; e < BQ * DH; e += THREADS) {
     const int rr = e / DH, d = e % DH;
@@ -141,9 +155,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * DH; e += THREADS) {
       const int rr = e / DH, d = e % DH;
-      const bool in = k0 + rr < S;
-      ks[rr * LD + d] = in ? kb[(size_t)(k0 + rr) * krow + d] : 0.f;
-      vs[rr * LD + d] = in ? vb[(size_t)(k0 + rr) * krow + d] : 0.f;
+      ks[rr * LD + d] = k0 + rr < S ? kb[(size_t)(k0 + rr) * krow + d] : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int rr = e / DV, d = e % DV;
+      vs[rr * LDV + d] = k0 + rr < S ? vb[(size_t)(k0 + rr) * vrow + d] : 0.f;
     }
     __syncthreads();
 
@@ -193,13 +209,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       const float p = ps[r * (BK + 1) + j];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, vs[j * LD + c + TPR * i], acc[i]);
+      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, vs[j * LDV + c + TPR * i], acc[i]);
     }
   }
 
   if (qi < S) {
     const float denom = fmaxf(l, 1e-30f);
-    float* ob = o + (size_t)b * S * qrow + (size_t)qi * qrow + (size_t)h * DH;
+    float* ob = o + (size_t)b * S * orow + (size_t)qi * orow + (size_t)h * DV;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) ob[c + TPR * i] = acc[i] / denom;
   }
@@ -494,7 +510,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bf16 at Dh = 64, 128, 224 (padded to 256) and 256: wgmma (Hopper's warpgroup products) ----
+// ---- bf16 at Dh = 64, 128, 224 (padded to 256), 256 and (192, 128): wgmma (Hopper's warpgroup products) ----
 
 // a wgmma shared-memory operand descriptor for a 128-byte-swizzled tile:
 // start address, leading and stride byte offsets (16-byte units), layout B128
@@ -604,39 +620,61 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (uint32_t)((c / 8) * 64 * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16));
 }
 
-// Stages of the wgmma kernel's K/V ring: tiles loading ahead, + K of the
-// tile in QK^T, + V of the tile in PV. Two tiles ahead at Dh = 64; one at
-// Dh = 128 and 256, where a fourth stage would leave one block per SM (at
-// 128) or not fit (at 256: 3 stages and Q take 225 of the 227 KB).
-__host__ __device__ constexpr int wg_stages(int dh) { return dh <= 64 ? 4 : 3; }
-
-template <int DHP>
-__host__ __device__ constexpr size_t wg_smem_bytes() {  // Q, the K/V ring, alignment
-  return (size_t)(1 + 2 * wg_stages(DHP)) * 64 * DHP * sizeof(bf16) + 1024;
+// Copy one 64-row tile of CP 16-byte chunks a row (the first CW hold data, the
+// rest are zero-filled) into a wgmma tile at dst: this thread's chunks
+// e = tid + j * TC_THREADS, row e / CP, chunk e % CP. Rows past S load zeros.
+// Used where K's and V's widths differ: a 24-chunk row (192) does not divide
+// the 128 threads, so the equal-width kernels' fixed per-thread chunk does not
+// apply.
+template <int CP, int CW>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t row, int k0,
+                                          int S, int tid) {
+  static_assert(TC_BK * CP % TC_THREADS == 0, "chunks per thread");
+#pragma unroll
+  for (int j = 0; j < TC_BK * CP / TC_THREADS; ++j) {
+    const int e = tid + j * TC_THREADS, r = e / CP, c = e % CP;
+    const bool in = k0 + r < S && c < CW;
+    cp_async16(dst + sw128(r, c), src + (in ? (size_t)(k0 + r) * row + c * 8 : 0), in);
+  }
 }
 
-// DH is the tensors' head width, DHP the tiles' (DH rounded up to whole
-// 64-column atoms: DH itself at 64, 128 and 256; 256 at 224).
-template <int DH, int DHP>
+// Stages of the wgmma kernel's K/V ring: tiles loading ahead, + K of the
+// tile in QK^T, + V of the tile in PV. Two tiles ahead at Dh = 64; one at
+// Dh = 128, 192 and 256, where a fourth stage would leave one block per SM
+// (at 128) or not fit (at 256: 3 stages and Q take 225 of the 227 KB).
+__host__ __device__ constexpr int wg_stages(int dh) { return dh <= 64 ? 4 : 3; }
+
+template <int DHP, int DVP>
+__host__ __device__ constexpr size_t wg_smem_bytes() {  // Q, the K/V ring, alignment
+  return ((size_t)(1 + wg_stages(DHP)) * DHP + (size_t)wg_stages(DHP) * DVP) * 64 *
+             sizeof(bf16) + 1024;
+}
+
+// DH is q's and k's head width, DV v's and o's (DV = DH but for the (192, 128)
+// pair); DHP and DVP the tiles' (rounded up to whole 64-column atoms: the
+// width itself at 64, 128, 192 and 256; 256 at 224).
+template <int DH, int DHP, int DV, int DVP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int B, int S, int H, int KH,
                 int nq, int causal, int window, float softcap, float scale) {
-  constexpr int TILE = 64 * DHP * (int)sizeof(bf16);  // bytes of one 64-row tile
+  constexpr int TILE = 64 * DHP * (int)sizeof(bf16);    // bytes of one 64-row Q or K tile
+  constexpr int TILE_V = 64 * DVP * (int)sizeof(bf16);  // ... and V tile
   constexpr int KSTEPS = DH / 16;  // k-steps of QK^T (the padded columns are zeros)
   constexpr int NT = TC_BK / 8;    // 8-key n-tiles of a score tile
-  constexpr int DT = DH / 8;       // 8-dim n-tiles of the output that are stored
+  constexpr int DT = DV / 8;       // 8-dim n-tiles of the output that are stored
   constexpr int CPR = DH / 8;      // 16-byte chunks per row of the tensors
   constexpr int CPRP = DHP / 8;    // ... and of the tiles (those past CPR zero-filled)
   constexpr int STAGES = wg_stages(DHP);
   constexpr int AHEAD = STAGES - 2;  // tiles in flight ahead of the one in QK^T
   static_assert(DHP % 64 == 0 && DH <= DHP && DHP - DH < 64 && DH % 16 == 0, "head width");
+  static_assert(DVP % 64 == 0 && DV <= DVP && DVP - DV < 64 && DV % 16 == 0, "value width");
   extern __shared__ __align__(16) unsigned char smem_wg[];
   // the B128 swizzle is read from address bits, so tiles start on 1 KB
   const uint32_t base = (smem_u32(smem_wg) + 1023u) & ~1023u;
   const uint32_t qs = base;                          // [64][DHP]
   const uint32_t ks = base + TILE;                // [STAGES][64][DHP]
-  const uint32_t vs = base + (1 + STAGES) * TILE;  // [STAGES][64][DHP]
+  const uint32_t vs = base + (1 + STAGES) * TILE;  // [STAGES][64][DVP]
 
   const int BH = B * H;
   const int rank = blockIdx.x / BH;  // causal: the longest query tiles first
@@ -651,9 +689,11 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid % 32;
   const size_t qrow = (size_t)H * DH;
   const size_t krow = (size_t)KH * DH;
+  const size_t vrow = (size_t)KH * DV;
+  const size_t orow = (size_t)H * DV;
   const bf16* qb = q + (size_t)b * S * qrow + (size_t)h * DH;
   const bf16* kb = k + (size_t)b * S * krow + (size_t)kh * DH;
-  const bf16* vb = v + (size_t)b * S * krow + (size_t)kh * DH;
+  const bf16* vb = v + (size_t)b * S * vrow + (size_t)kh * DV;
 
   const int q_last = min(q0 + TC_BQ, S) - 1;
   const int k_hi = causal ? q_last : S - 1;
@@ -666,8 +706,8 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool in = q0 + r < S && ch < CPR;
     cp_async16(qs + sw128(r, ch), qb + (in ? (size_t)(q0 + r) * qrow + ch * 8 : 0), in);
   }
-  // this thread's 16-byte chunks of a K/V tile: chunk tid % CPRP of the rows
-  // tid / CPRP + j * RPJ, the same in every tile
+  // this thread's 16-byte chunks of a K/V tile at equal widths: chunk
+  // tid % CPRP of the rows tid / CPRP + j * RPJ, the same in every tile
   constexpr int PER = TC_BK * CPRP / TC_THREADS;
   constexpr int RPJ = TC_THREADS / CPRP;
   const int r0 = tid / CPRP, ch = tid % CPRP;
@@ -675,14 +715,19 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int i) {  // the i-th reachable K/V tile, into stage i % STAGES
     const int k0 = (t_lo + i) * TC_BK;
     const uint32_t st = (uint32_t)(i % STAGES) * TILE;
-    const size_t g0 = (size_t)k0 * krow + g_base;
+    if constexpr (DV == DH) {
+      const size_t g0 = (size_t)k0 * krow + g_base;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int r = r0 + j * RPJ;
-      const bool in = k0 + r < S && ch < CPR;
-      const size_t off = in ? g0 + (size_t)j * RPJ * krow : 0;
-      cp_async16(ks + st + sw128(r, ch), kb + off, in);
-      cp_async16(vs + st + sw128(r, ch), vb + off, in);
+      for (int j = 0; j < PER; ++j) {
+        const int r = r0 + j * RPJ;
+        const bool in = k0 + r < S && ch < CPR;
+        const size_t off = in ? g0 + (size_t)j * RPJ * krow : 0;
+        cp_async16(ks + st + sw128(r, ch), kb + off, in);
+        cp_async16(vs + st + sw128(r, ch), vb + off, in);
+      }
+    } else {  // K and V apart: their rows differ in width
+      load_tile<CPRP, CPR>(ks + st, kb, krow, k0, S, tid);
+      load_tile<DVP / 8, DV / 8>(vs + (uint32_t)(i % STAGES) * TILE_V, vb, vrow, k0, S, tid);
     }
     cp_async_commit();
   };
@@ -692,9 +737,9 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 softcap * LOG2E};
   const int w0 = q0 + warp * 16;  // this warp's first row
   const int qi0 = w0 + lane / 4;  // this thread's rows: qi0 and qi0 + 8
-  float oacc[DHP / 2];            // [DHP / 8][4]: the m64nDHP accumulator fragment
+  float oacc[DVP / 2];            // [DVP / 8][4]: the m64nDVP accumulator fragment
 #pragma unroll
-  for (int i = 0; i < DHP / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) oacc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   float sacc[NT * 4];  // the m64n64 score fragment, [NT][4]; then P
   uint32_t pk[TC_BK / 16][4];  // P in bf16: the A operand of PV
@@ -727,10 +772,10 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_commit();
     }
     if (i > 0) {  // PV: P (registers) x V (MN-major in shared memory)
-      const uint32_t vst = vs + (uint32_t)((i - 1) % STAGES) * TILE;
+      const uint32_t vst = vs + (uint32_t)((i - 1) % STAGES) * TILE_V;
 #pragma unroll
       for (int kk = 0; kk < TC_BK / 16; ++kk)
-        wgmma_pv<DHP>(oacc, pk[kk], vst + kk * 16 * 128);
+        wgmma_pv<DVP>(oacc, pk[kk], vst + kk * 16 * 128);
       wg_commit();
     }
     if (i == ntiles) {
@@ -743,7 +788,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     softmax_step(sacc, m, l, alpha, (t_lo + i) * TC_BK, w0, lane, mk);
     wg_wait<0>();  // PV of tile i - 1 is in O: rescale it to tile i's max
 #pragma unroll
-    for (int j = 0; j < DHP / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
+    for (int j = 0; j < DVP / 2; ++j) oacc[j] *= alpha[(j >> 1) & 1];
   }
 
 #pragma unroll
@@ -754,7 +799,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int qi = qi0 + 8 * r;
     if (qi >= S) continue;
-    bf16* ob = o + (size_t)b * S * qrow + (size_t)qi * qrow + (size_t)h * DH + (lane % 4) * 2;
+    bf16* ob = o + (size_t)b * S * orow + (size_t)qi * orow + (size_t)h * DV + (lane % 4) * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(ob + dt * 8) =
@@ -780,34 +825,36 @@ int allow_smem(F* kernel, size_t smem, bool& done) {
   return 0;
 }
 
-template <int DH>
+template <int DH, int DV = DH>
 int launch_f32(const Args& a, cudaStream_t st) {
   static bool done = false;
-  const size_t smem = smem_bytes<DH>();
-  if (int err = allow_smem(flash_fwd_f32<DH>, smem, done)) return err;
+  const size_t smem = smem_bytes<DH, DV>();
+  if (int err = allow_smem(flash_fwd_f32<DH, DV>, smem, done)) return err;
   const int nq = (a.S + BQ - 1) / BQ;
   const unsigned grid = (unsigned)a.B * (unsigned)a.H * (unsigned)nq;
-  flash_fwd_f32<DH><<<grid, THREADS, smem, st>>>(
+  flash_fwd_f32<DH, DV><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.H, a.KH, nq, a.causal,
       a.window, a.softcap, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int DV = DH>
 int launch_tc(const Args& a, cudaStream_t st) {
   static bool done = false;
   const int nq = (a.S + TC_BQ - 1) / TC_BQ;
   const unsigned grid = (unsigned)a.B * (unsigned)a.H * (unsigned)nq;
   if constexpr (DH >= 64) {
     constexpr int DHP = (DH + 63) / 64 * 64;  // 224 -> 256
-    const size_t smem = wg_smem_bytes<DHP>();
-    if (int err = allow_smem(flash_fwd_wgmma<DH, DHP>, smem, done)) return err;
-    flash_fwd_wgmma<DH, DHP><<<grid, TC_THREADS, smem, st>>>(
+    constexpr int DVP = (DV + 63) / 64 * 64;
+    const size_t smem = wg_smem_bytes<DHP, DVP>();
+    if (int err = allow_smem(flash_fwd_wgmma<DH, DHP, DV, DVP>, smem, done)) return err;
+    flash_fwd_wgmma<DH, DHP, DV, DVP><<<grid, TC_THREADS, smem, st>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.B, a.S, a.H, a.KH, nq,
         a.causal, a.window, a.softcap, a.scale);
   } else {
+    static_assert(DV == DH, "mma.sync takes one head width");
     const size_t smem = tc_smem_bytes<DH>();
     if (int err = allow_smem(flash_fwd_mma<DH>, smem, done)) return err;
     flash_fwd_mma<DH><<<grid, TC_THREADS, smem, st>>>(
@@ -819,7 +866,12 @@ int launch_tc(const Args& a, cudaStream_t st) {
 }
 
 template <bool TC>
-int dispatch_dh(const Args& a, int Dh, cudaStream_t st) {
+int dispatch_dh(const Args& a, int Dh, int Dv, cudaStream_t st) {
+  if (Dv != Dh) {
+    if (Dh == 192 && Dv == 128)
+      return TC ? launch_tc<192, 128>(a, st) : launch_f32<192, 128>(a, st);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (Dh) {
     case 16: return TC ? launch_tc<16>(a, st) : launch_f32<16>(a, st);
     case 32: return TC ? launch_tc<32>(a, st) : launch_f32<32>(a, st);
@@ -835,18 +887,19 @@ int dispatch_dh(const Args& a, int Dh, cudaStream_t st) {
 
 extern "C" {
 
-// q [B, S, H, Dh], k/v [B, S, KH, Dh], o [B, S, H, Dh], all contiguous and of
-// one dtype (0 = float32: the scalar kernel; 1 = bfloat16: the tensor-core
-// kernel, which also needs 16-byte aligned tensors); Dh in {16, 32, 64, 128,
-// 224, 256}; H % KH == 0; window 0 = none; softcap 0 = none. Launches on
-// `stream` and returns cudaGetLastError().
+// q [B, S, H, Dh], k [B, S, KH, Dh], v [B, S, KH, Dv], o [B, S, H, Dv], all
+// contiguous and of one dtype (0 = float32: the scalar kernel; 1 = bfloat16:
+// the tensor-core kernel, which also needs 16-byte aligned tensors); Dv = Dh
+// in {16, 32, 64, 128, 224, 256}, or (Dh, Dv) = (192, 128); H % KH == 0;
+// window 0 = none; softcap 0 = none. Launches on `stream` and returns
+// cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                           int S, int H, int KH, int Dh, int dtype, int causal,
+                           int S, int H, int KH, int Dh, int Dv, int dtype, int causal,
                            int window, float softcap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, o, B, S, H, KH, causal, window, softcap, scale};
-  if (dtype == 0) return dispatch_dh<false>(a, Dh, st);
-  if (dtype == 1) return dispatch_dh<true>(a, Dh, st);
+  if (dtype == 0) return dispatch_dh<false>(a, Dh, Dv, st);
+  if (dtype == 1) return dispatch_dh<true>(a, Dh, Dv, st);
   return (int)cudaErrorInvalidValue;
 }
 

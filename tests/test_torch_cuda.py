@@ -1,9 +1,10 @@
 """CUDA legs of the port's tests: each Hopper kernel against its plain
 version on the card (similarity_topk lanes B1 and its single-store form B2,
-decode attention B3, flash attention B4, the SSD chunked scan B5), the
-wrappers' refusals, the read path through the kernel against the same read
-through the plain search, and the serving engines (dense and SSM) on the
-card against their CPU runs.
+decode attention B3, flash attention B4 (with MLA's value width too), the
+SSD chunked scan B5), the wrappers' refusals, the read path through the
+kernel against the same read through the plain search, the MoE FFN's
+routing on the card against the CPU's, and the serving engines (dense,
+SSM and MoE) on the card against their CPU runs.
 
 They import torch and the port only, never JAX, so they also run where
 JAX is absent; ``tests/conftest.py`` imports JAX, hence ``--noconftest``:
@@ -608,4 +609,129 @@ def test_ssm_engine_on_the_card_matches_its_cpu_run(dev):
         outs[d] = eng.generate(prompts, max_new_tokens=6)
         if d == "cuda":
             assert sk.launches - s0 == cfg.num_layers * len(prompts)
+    assert outs["cuda"] == outs["cpu"]
+
+
+# B4 with its own value width: MLA's prefill, q/k 192 and v 128 (H = KH)
+FLASH_PAIR_CASES = [
+    # B, S, H, KH, window, softcap, causal
+    (1, 32, 128, 128, 0, 0.0, True),  # deepseek-v3's engine prefill
+    (1, 1, 4, 4, 0, 0.0, True),
+    (2, 63, 4, 4, 0, 0.0, True),
+    (1, 100, 8, 8, 0, 0.0, True),  # ragged S
+    (1, 2048, 8, 8, 0, 0.0, True),
+    (2, 77, 8, 2, 48, 30.0, True),  # GQA, window and softcap
+    (1, 65, 4, 4, 0, 0.0, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_PAIR_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_value_width_matches_plain(case, dt, dev):
+    B, S, H, KH, window, cap, causal = case
+    q = _randn((B, S, H, 192), dt, dev, 20)
+    k, v = _randn((B, S, KH, 192), dt, dev, 21), _randn((B, S, KH, 128), dt, dev, 22)
+    before = fk.launches
+    got = fk.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap,
+                                  scale=192 ** -0.5)
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=cap,
+                                    scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1 and got.dtype == dt and got.shape == (B, S, H, 128)
+    tol = ATTN_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S", [32, 300, 2048])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_at_llama4_shapes_matches_plain(S, dt, dev):
+    """llama4-scout's prefill: H 40 over KH 8 (G = 5), Dh 128, the local
+    layers' window of 8192."""
+    q = _randn((1, S, 40, 128), dt, dev, 23)
+    k, v = _randn((1, S, 8, 128), dt, dev, 24), _randn((1, S, 8, 128), dt, dev, 25)
+    got = fk.flash_attention_cuda(q, k, v, window=8192)
+    want = fk.flash_attention_plain(q, k, v, window=8192)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, (1, 17, 256, 40)),
+                                   (4, 9000, (9000, 8193, 100, 1))])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_at_llama4_shapes_matches_plain(shape, dt, dev):
+    """llama4-scout's decode: H 40 over KH 8 (G = 5, rounded up to an
+    8-head block), Dh 128, a window of 8192 (biting past 8192 rows)."""
+    B, S, lens = shape
+    _decode_matches_plain(B, S, 40, 8, 128, lens, dt, dev, window=8192)
+
+
+def test_flash_refuses_a_width_pair_it_is_not_built_for(dev):
+    q, k = _randn((1, 16, 4, 128), torch.bfloat16, dev, 26), _randn((1, 16, 4, 128),
+                                                                     torch.bfloat16, dev, 27)
+    f0 = fk.launches
+    with pytest.raises(ValueError, match="head_dim pair"):
+        fk.flash_attention_cuda(q, k, k[..., :64].contiguous())
+    assert fk.launches == f0
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_moe_routes_on_the_card_as_on_the_cpu(arch, dev):
+    """The MoE FFN at the smoke widths in float32 (TF32 off), one layer with
+    a nonzero router bias, on the card and on the CPU: the same expert ids
+    wherever the CPU's gap between the k-th and the (k+1)-th routing score
+    exceeds 1e-4, the same drop fraction, outputs within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if "router_bias" in params:
+        params["router_bias"] = 0.1 * torch.randn(cfg.moe.num_experts,
+                                                  generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    y_cpu, m_cpu = moe.moe_ffn(params, cfg, x)
+    idx_cpu, _ = moe._route(params, cfg, x.reshape(80, -1))
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    y_dev, m_dev = moe.moe_ffn(p_dev, cfg, x.to(dev))
+    idx_dev, _ = moe._route(p_dev, cfg, x.to(dev).reshape(80, -1))
+    logits = x.reshape(80, -1) @ params["router"]
+    scores = torch.sigmoid(logits) + params["router_bias"] if "router_bias" in params \
+        else torch.softmax(logits, -1)
+    top = torch.sort(scores, -1, descending=True).values
+    k = cfg.moe.top_k
+    decided = (top[:, k - 1] - top[:, k]) > 1e-4
+    assert torch.equal(idx_dev.cpu()[decided], idx_cpu[decided])
+    assert float(m_dev["moe_drop_fraction"]) == float(m_cpu["moe_drop_fraction"])
+    np.testing.assert_allclose(y_dev.cpu().numpy(), y_cpu.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_moe_engine_on_the_card_matches_its_cpu_run(dev):
+    """The llama4-scout smoke model (MoE, GQA) in float32 through the engine
+    on the card and on the CPU: the same greedy tokens, one flash launch per
+    layer and prefill, one decode launch per layer and step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e", smoke=True), dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 1, 7, 2, 11)]
+    outs = {}
+    for d in ("cpu", "cuda"):
+        p = _tree_to(params, dev) if d == "cuda" else params
+        eng = ServingEngine(cfg, p, max_batch=2, max_seq=64, device=d)
+        f0, d0 = fk.launches, dk.launches
+        outs[d] = eng.generate(prompts, max_new_tokens=6)
+        if d == "cuda":
+            assert fk.launches - f0 == cfg.num_layers * len(prompts)
+            assert dk.launches - d0 == cfg.num_layers * eng.metrics["decode_steps"]
     assert outs["cuda"] == outs["cpu"]

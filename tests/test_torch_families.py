@@ -1,15 +1,20 @@
-"""The port's dense, vision, audio and hybrid configurations against the
+"""The port's dense, vision, audio, hybrid and MoE configurations against the
 reference's jnp model: qwen3-8b, gemma2-27b, gemma3-4b,
-llava-next-mistral-7b, musicgen-large and zamba2-7b, each at its smoke
-config in float32 with the reference's random weights carried across by
-``params_from_jax``. ``prefill``'s logits and every cache leaf, then three
+llava-next-mistral-7b, musicgen-large, zamba2-7b, llama4-scout-17b-a16e
+(MoE, top-1 softmax router, local/NoPE-global layers) and deepseek-v3-671b
+(MLA, a dense layer then MoE layers with a sigmoid_bias router, an MTP
+head), each at its smoke config in float32 with the reference's random
+weights carried across by ``params_from_jax``. ``prefill``'s logits and every cache leaf, then three
 teacher-forced ``decode_step``s at ragged positions (the two sequences a
 different number of rows apart), agree within 1e-4 (float32 sums in
 another order over a few layers). llava runs with and without a prefix of
 projected patch embeddings; musicgen takes [B, K, S] tokens and gives
-[B, K, V] logits; zamba2 fills its nested {"mamba", "shared"} cache. Each
-``CONFIG`` and ``smoke()`` equals the reference's field by field, apart
-from the reference's training and TPU fields, which the port drops."""
+[B, K, V] logits; zamba2 fills its nested {"mamba", "shared"} cache;
+deepseek-v3 its latent {"ckv", "kr"} cache. The MoE models' ``forward``
+gives the reference's ``moe_drop_fraction`` exactly, with drops present.
+Each ``CONFIG`` and ``smoke()`` equals the reference's field by field,
+apart from the reference's training and TPU fields, which the port
+drops."""
 import dataclasses
 
 import jax
@@ -27,11 +32,11 @@ from repro_torch.models import transformer as TT
 torch.set_num_threads(1)
 
 ARCHS = ("qwen3-8b", "gemma2-27b", "gemma3-4b", "llava-next-mistral-7b", "musicgen-large",
-         "zamba2-7b")
+         "zamba2-7b", "llama4-scout-17b-a16e", "deepseek-v3-671b")
+MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
 TOL = 1e-4
-# the reference's fields the port leaves out: the trainer's and the TPU
-# programs', and the MoE/MLA families' (ROADMAP queue A items 10d, 10e)
-DROPPED = {"max_seq_len", "moe", "mla", "mtp_depth", "remat", "loss_chunk", "attn_chunk",
+# the reference's fields the port leaves out: the trainer's and the TPU programs'
+DROPPED = {"max_seq_len", "remat", "loss_chunk", "attn_chunk",
            "use_pallas", "kernel_interpret", "topk_block_n", "topk_grid_order", "optimizer",
            "grad_accum", "unroll", "remat_policy", "infer_params_tp_only", "kv_cache_dtype",
            "opt_pod_sharded", "gqa_repeat_kv"}
@@ -153,3 +158,52 @@ def test_frontend_trees_have_the_reference_shapes(arch):
     got = jax.tree_util.tree_map(lambda a: tuple(a.shape),
                                  TT.init_params(tc, seed=0, device="cpu"))
     assert got == shapes
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_forward_moe_drop_fraction_matches_reference(models, arch):
+    """``forward``'s hidden states within 1e-4 and its metric, the mean of
+    the MoE layers' drop fractions, equal to the reference's at the config's
+    own capacity factor over 2 x 40 tokens, where experts overflow."""
+    jc, tc, jp, tp = models[arch]
+    toks = np.random.default_rng(9).integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    jh, _, _, jm = JT.forward(jp, jc, {"tokens": jnp.asarray(toks)})
+    th, tm = TT.forward(tp, tc, {"tokens": torch.from_numpy(toks)})
+    _close(th, jh)
+    assert set(tm) == set(jm) == {"moe_drop_fraction"}
+    assert np.float32(tm["moe_drop_fraction"]) == np.float32(jm["moe_drop_fraction"]) > 0
+    _, qc, _, qp = models["qwen3-8b"]  # a model without MoE layers reports no metric
+    assert TT.forward(qp, qc, {"tokens": torch.from_numpy(toks[:, :5])})[1] == {}
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_trees_keep_the_router_in_float32(arch):
+    """The MoE trees have the reference's shapes ("dense_layers" only with
+    first_k_dense, "mtp" only with mtp_depth), and ``params_from_jax`` keeps
+    ``router`` and ``router_bias`` float32 in a bfloat16 model, everywhere
+    they occur (the MoE stack and the MTP block)."""
+    jc, tc = j_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    jp, _ = JT.init_params(jc, jax.random.PRNGKey(6))
+    pn = jax.tree_util.tree_map(np.asarray, jp)
+    tp = TT.params_from_jax(pn, tc, device="cpu")
+    shape = lambda a: tuple(a.shape)  # noqa: E731
+    assert jax.tree_util.tree_map(shape, tp) == jax.tree_util.tree_map(shape, pn)
+    assert jax.tree_util.tree_map(shape, TT.init_params(tc, seed=0, device="cpu")) == \
+        jax.tree_util.tree_map(shape, pn)
+    want = {"embed", "unembed", "final_norm", "moe_layers"}
+    if jc.moe.first_k_dense:
+        want |= {"dense_layers", "mtp"}
+    assert set(tp) == want
+    ffns = [tp["moe_layers"]["ffn"]] + ([tp["mtp"]["block"]["ffn"]] if "mtp" in tp else [])
+    for ffn in ffns:
+        assert ffn["router"].dtype == torch.float32
+        assert ffn.get("router_bias", ffn["router"]).dtype == torch.float32
+        assert ffn["w_gate"].dtype == torch.bfloat16
+    if "router_bias" in ffns[0]:  # the reference keeps it float32 too
+        assert pn["moe_layers"]["ffn"]["router_bias"].dtype == np.float32
+    cache = TT.init_cache(tc, 3, 16, device="cpu")
+    jcache, _ = JT.init_cache(jc, 3, 16)
+    assert {k: shape(v) for k, v in cache.items()} == {k: v.shape for k, v in jcache.items()}
+    missing = "mtp" if "mtp" in pn else "moe_layers"
+    with pytest.raises(ValueError, match="expected"):
+        TT.params_from_jax({k: v for k, v in pn.items() if k != missing}, tc, device="cpu")

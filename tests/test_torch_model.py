@@ -141,13 +141,20 @@ def test_greedy_takes_the_first_maximum_like_jnp_argmax():
 
 
 def test_other_families_raise_naming_the_roadmap():
+    """Every architecture and family of the reference is ported: a family
+    the reference does not define raises, naming the ported ones, and an
+    unknown architecture is a KeyError."""
+    from repro.configs import ARCH_NAMES as J_ARCH_NAMES
+
     _, tc = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(dataclasses.replace(tc, family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama4-scout-17b-a16e")
+    with pytest.raises(NotImplementedError, match="'no-such-family' is not one the reference"):
+        TT.init_params(dataclasses.replace(tc, family="no-such-family"), device="cpu")
+    with pytest.raises(NotImplementedError, match="not one the reference"):
+        TT.init_cache(dataclasses.replace(tc, family="no-such-family"), 1, 8, device="cpu")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    for name in J_ARCH_NAMES:
+        assert get_config(name).name == name == get_config(name, smoke=True).name
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
