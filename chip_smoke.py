@@ -5,7 +5,7 @@ vision, audio, SSM, hybrid and MoE models).
 
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
-                           | --moe-only] [--src DIR]
+                           | --moe-only | --sharded-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -74,7 +74,20 @@ their ``engine:`` lines and zamba2's long line, just before their
 replays), ``decide:`` (one
 read's decisions recomputed with the plain version), ``read:`` (p50 of one
 fused read per batch bucket), ``store:`` (B2's path: a single-store cache's
-lookups, each store search one call of ``ops.similarity_topk``), the
+lookups, each store search one call of ``ops.similarity_topk``),
+``sharded:`` (the sharded read path: the main path's L2 entries in a
+``ShardedVectorStore`` over ``make_cache_mesh(8, device="cuda")``, 8
+positions on the card; one read at B = 8 against the single-device fused
+read over the same entries, decisions and candidates' payloads, and
+against the same read on a CPU copy, decisions, global ids and counter
+deltas, with one position dead (``shard_mask``) and with L2 on the
+lifecycle route (TTLs and a staleness weight: L2 plain, L1 still B1);
+``make_cache_mesh()``'s
+one-card deployment, kernel route against plain; the read's p50 per
+bucket B = 1..8; one read's device ms, busy share and launches, B1 once
+and B2 once per position; 64 requests through ``CacheService`` over a
+sharded hierarchy, misses answered by the qwen1.5-0.5b engine, with the
+5x gate), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
 ``engine: musicgen-large model-level``, then the MoE models' lines, last
 so that the host copies of their float32 lines come after every
@@ -96,7 +109,8 @@ and times, their six ``model:``
 lines, the qwen3-8b and zamba2-7b replays, the other engines),
 ``--moe-only`` only the MoE models' lines (B4 at (192, 128) and B3/B4 at
 llama4's shapes, checked and timed; ``moe:``, ``model:``, ``engine:``,
-``profile:``), and
+``profile:``), ``--sharded-only`` only the ``sharded:`` lines (B1/B2
+and B3/B4 built, the qwen1.5-0.5b engine for the replay), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -407,8 +421,8 @@ def kernel_times(kern, dev, gpu):
 
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
-    library's build time. ``only`` = "attention", "topk" or "ssd" builds
-    those kernels' libraries alone."""
+    library's build time. ``only`` = "attention", "topk", "ssd" or
+    "sharded" (B1/B2 and B3/B4) builds those kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -421,7 +435,8 @@ def build_all(only=None):
         lib.build()
         return lib.src.name, time.perf_counter() - t0
 
-    libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB]}.get(
+    libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
+            "sharded": [tk.LIB, fk.LIB, dk.LIB]}.get(
         only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
@@ -893,17 +908,19 @@ def ssd_times(dev, gpu):
     return out
 
 
-def b2_times(kern, dev, gpu, Q=1):
-    """B2 at its path's shape: one [131072, 768] float32 store of unit rows
-    searched for one query, as ``InMemoryVectorStore.search`` does."""
+def b2_times(kern, dev, gpu, Q=1, N=L2_CAP):
+    """B2 at its path's shape: one [N, 768] float32 store of unit rows
+    searched for Q queries: one query over 131072 rows, as
+    ``InMemoryVectorStore.search`` does, or a batch of 8 over one sharded
+    position's 16384 rows, as the sharded read does."""
     import torch
 
     from repro_torch.kernels.similarity_topk import ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    db = torch.randn((L2_CAP, DIM), generator=g, device=dev)
+    db = torch.randn((N, DIM), generator=g, device=dev)
     db /= torch.linalg.vector_norm(db, dim=-1, keepdim=True)
-    valid = torch.rand((L2_CAP,), generator=g, device=dev) < 0.9
+    valid = torch.rand((N,), generator=g, device=dev) < 0.9
     q = torch.randn((Q, DIM), generator=g, device=dev)
     q /= torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
@@ -911,13 +928,13 @@ def b2_times(kern, dev, gpu, Q=1):
         return ops.similarity_topk(db, valid, q, k=TOPK, metric="cosine", prenormalized=True)
 
     bound, by = _bound(db.numel() * 4 + valid.numel() + q.numel() * 4 + 2 * Q * TOPK * 4,
-                       2 * Q * L2_CAP * DIM, FP32_FLOP_PER_S)
+                       2 * Q * N * DIM, FP32_FLOP_PER_S)
     k_ms, h_ms = device_ms(kernel, bound), host_ms(kernel)
     p_ms = device_ms(lambda: kern.similarity_topk_lanes_plain(db[None], valid[None], q, TOPK),
                      bound, iters=5)
     l_ms = device_ms(lambda: torch.topk((q @ db.T).masked_fill(~valid[None], float("-inf")),
                                         TOPK, dim=-1), bound, iters=10)
-    print(f"time: similarity_topk (B2, lanes kernel at L=1) N={L2_CAP} D={DIM} Q={Q} "
+    print(f"time: similarity_topk (B2, lanes kernel at L=1) N={N} D={DIM} Q={Q} "
           f"k={TOPK} route={route_of(kern, Q, DIM, TOPK)} "
           f"kernel_ms={k_ms:.4f} kernel_host_ms={h_ms:.4f} plain_ms={p_ms:.4f} "
           f"library_ms={l_ms:.4f} "
@@ -1403,6 +1420,35 @@ def store_phase(enc, dev, gpu, queries, cap=L2_CAP):
     return launches
 
 
+def traffic_setup(enc):
+    """The main path's traffic from ``squad_like_qa``: one paraphrase per
+    cluster to cache (``cached``), the others as ``probes``, 64 of them as
+    the replayed ``traffic``, and (t_s, t_single, t_combined) from this
+    encoder's similarity quantiles, so the random-init encoder's traffic
+    shows every class (semantic hit, generative hit, miss)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import squad_like_qa
+
+    data = squad_like_qa(100, 4, seed=SEED, with_aspects=True)
+    by_cluster = {}
+    for qtext, ans, cid in data:
+        by_cluster.setdefault(cid, []).append((qtext, ans))
+    cached = [v[0] for v in by_cluster.values()]  # one paraphrase per cluster is cached
+    probes = [p for v in by_cluster.values() for p in v[1:]]
+    rng = np.random.default_rng(SEED)
+    traffic = [probes[i] for i in rng.permutation(len(probes))[:64]]
+    ce = enc.embed_batch([q for q, _ in cached])
+    pe = enc.embed_batch([q for q, _ in traffic])
+    S = np.sort(pe @ ce.T, axis=1)[:, ::-1]
+    t_s = float(np.quantile(S[:, 0], 0.75))
+    t_single = float(np.quantile(S[:, 0], 0.25))
+    below = S[S[:, 0] <= t_s][:, :TOPK]
+    sums = np.where(below > t_single, below, 0.0).sum(1)
+    t_comb = float(np.quantile(sums[sums > 0], 0.5)) if (sums > 0).any() else 2 * t_s
+    return cached, probes, traffic, (t_s, t_single, t_comb)
+
+
 def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
     """The port's read path end to end through its user entry points: the
     same burst replayed with ``MockLLM`` answering the misses, then with
@@ -1428,7 +1474,6 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
         MockLLM,
     )
     from repro_torch.core import read_path
-    from repro_torch.data.synthetic import squad_like_qa
     from repro_torch.kernels.similarity_topk import kernel as kern
     from repro_torch.kernels.similarity_topk import ops
     from repro_torch.serving.service import CacheService
@@ -1439,25 +1484,7 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     enc = ContrieverEncoder(cfg, seed=SEED, device=dev)
     n_params = sum(p.numel() for p in enc.parameters())
-    data = squad_like_qa(100, 4, seed=SEED, with_aspects=True)
-    by_cluster = {}
-    for qtext, ans, cid in data:
-        by_cluster.setdefault(cid, []).append((qtext, ans))
-    cached = [v[0] for v in by_cluster.values()]  # one paraphrase per cluster is cached
-    probes = [p for v in by_cluster.values() for p in v[1:]]
-    rng = np.random.default_rng(SEED)
-    traffic = [probes[i] for i in rng.permutation(len(probes))[:64]]
-
-    # thresholds from this run's similarity quantiles, so the random-init
-    # encoder's traffic shows every class (semantic hit, generative hit, miss)
-    ce = enc.embed_batch([q for q, _ in cached])
-    pe = enc.embed_batch([q for q, _ in traffic])
-    S = np.sort(pe @ ce.T, axis=1)[:, ::-1]
-    t_s = float(np.quantile(S[:, 0], 0.75))
-    t_single = float(np.quantile(S[:, 0], 0.25))
-    below = S[S[:, 0] <= t_s][:, :TOPK]
-    sums = np.where(below > t_single, below, 0.0).sum(1)
-    t_comb = float(np.quantile(sums[sums > 0], 0.5)) if (sums > 0).any() else 2 * t_s
+    cached, probes, traffic, (t_s, t_single, t_comb) = traffic_setup(enc)
 
     def level(cap):
         return GenerativeCache(enc, threshold=t_s, t_single=t_single, t_combined=t_comb,
@@ -1604,6 +1631,314 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
         profile_read(lambda: read_path.fused_read(bank, enc, tb, thr_b, specs),
                      lambda: enc.fused_forward()[0](tb), gpu)
     return launches, enc, [q for q, _ in traffic]
+
+
+SHARDS = 8  # positions of the sharded L2 (all on the one card)
+
+
+def _decisions_equal(a, b):
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("winner", "hit", "generative"))
+
+
+def sharded_fill(enc, cached, l2_cap=L2_CAP):
+    """The main path's L2 entries (90% of ``l2_cap``): the seeded filler
+    rows, then the cached paraphrases through the encoder."""
+    import numpy as np
+
+    n_fill = int(0.9 * l2_cap) - len(cached)
+    rows = np.concatenate([
+        np.random.default_rng(SEED + 7).standard_normal((n_fill, enc.dim)).astype(np.float32),
+        enc.embed_batch([q for q, _ in cached]).astype(np.float32),
+    ])
+    queries = [f"filler {i}" for i in range(n_fill)] + [q for q, _ in cached]
+    answers = [f"filler answer {i}" for i in range(n_fill)] + [a for _, a in cached]
+    return rows, queries, answers
+
+
+def sharded_hierarchy(enc, knobs, fill, l2_store, l1_dev, l1_cap=L1_CAP, l2_cap=L2_CAP):
+    """HierarchicalCache(L1 GenerativeCache on ``l1_dev``, L2 GenerativeCache
+    on ``l2_store``), L2 holding ``fill`` and L1 the first 64 cached
+    paraphrases (so both levels hit)."""
+    from repro_torch.core import GenerativeCache, HierarchicalCache
+
+    t_s, t_single, t_comb = knobs
+
+    def level(**kw):
+        return GenerativeCache(enc, threshold=t_s, t_single=t_single, t_combined=t_comb,
+                               max_sources=TOPK, use_pallas=True, **kw)
+
+    l1 = level(capacity=l1_cap, device=l1_dev)
+    l2 = level(store=l2_store) if l2_store is not None else level(capacity=l2_cap, device=l1_dev)
+    rows, queries, answers = fill
+    l2.insert_batch(queries, answers, vecs=rows)
+    l1.insert_batch(queries[-64:], answers[-64:], vecs=rows[-64:])
+    return HierarchicalCache(l1, l2)
+
+
+def sharded_phase(dev, gpu, enc, engine, n_shards=SHARDS, l1_cap=L1_CAP, l2_cap=L2_CAP):
+    """The sharded read path (``sharded:`` lines): L1 a GenerativeCache on
+    one InMemoryVectorStore(16384), L2 a GenerativeCache on
+    ShardedVectorStore(make_cache_mesh(8, device="cuda"), 768, 131072) —
+    8 positions on the one card, 16384 rows each — filled like the main
+    path's L2 and read on the kernel route (B1 over the hot lanes, B2 at
+    each position). One read at B = 8 is held against the single-device
+    fused read over the same entries (decisions, and the candidates'
+    payloads, since slot ids differ; scores within 2e-5), then against the
+    same read on a CPU copy of the sharded hierarchy (decisions, global
+    ids, counter deltas), with one position dead (``shard_mask``), and with
+    TTLs and a staleness weight set on L2 (L2 on the lifecycle route, the
+    plain version; L1 has none and keeps B1). The
+    one-card deployment (``make_cache_mesh()``) reads once against its
+    numpy mirror. Then the sharded read's p50 per batch bucket, its
+    launches, device ms and busy share at B = 8, and 64 requests through
+    CacheService(max_batch=8) over a fresh sharded hierarchy with the
+    qwen1.5-0.5b engine behind ModelBackend answering the misses. Smaller
+    caps (and a CPU device, whose reads launch no kernel) rehearse it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import CacheRequest, EnhancedClient, read_path
+    from repro_torch.core.store_bank import StoreBank
+    from repro_torch.distributed.sharded_store import ShardedVectorStore
+    from repro_torch.kernels.similarity_topk import kernel as kern
+    from repro_torch.kernels.similarity_topk import ops
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.serving.engine import ModelBackend
+    from repro_torch.serving.service import CacheService
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    per = 1 if on_card else 0  # the CPU runs the plain versions: no launch there
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    cached, probes, traffic, knobs = traffic_setup(enc)
+    fill = sharded_fill(enc, cached, l2_cap)
+
+    def sharded(d):
+        return ShardedVectorStore(make_cache_mesh(n_shards, device=d), enc.dim, l2_cap, k=TOPK,
+                                  use_pallas=True)
+
+    h = sharded_hierarchy(enc, knobs, fill, sharded(dev), dev, l1_cap, l2_cap)
+    srb = h.ensure_sharded_bank()
+    l2s = h.l2.store
+    if srb is None or l2s.n_shards != n_shards or l2s.cap_local != l2_cap // n_shards:
+        raise AssertionError("expected one sharded read over 8 positions")
+    hs = sharded_hierarchy(enc, knobs, fill, None, dev, l1_cap, l2_cap)  # the single-device twin
+    hc = sharded_hierarchy(enc, knobs, fill, sharded(cpu), cpu, l1_cap, l2_cap)  # the CPU copy
+    sync()
+    mb = sum(p.buf.numel() * 4 for p in l2s.bank.parts) / 1e6
+    print(f"sharded: L2 positions={n_shards} cap_local={l2s.cap_local} dim={enc.dim} "
+          f"L2_MB={mb:.1f} L2_live={len(l2s)} L1_live={len(h.l1.store)} "
+          f"devices={sorted({str(d) for d in l2s.mesh.devices.flat})} "
+          f"setup_s={time.perf_counter() - t0:.1f} [{gpu}]")
+
+    def thresholds(hier, tb):
+        return np.asarray([[c.effective_threshold(t, None) for _, c in hier._levels()]
+                           for t in tb])
+
+    specs = tuple(read_path.level_spec(c, TOPK) for _, c in h._levels())
+    unseen = [p for p in probes if p not in traffic]
+    texts = [q for q, _ in traffic[:4] + unseen[:4]]
+    thr = thresholds(h, texts)
+
+    # 1. against the single-device fused read over the same entries
+    l0 = (kern.launches, ops.single_store_launches)
+    dec = srb.fused_read(enc, texts, thr, specs)
+    spent = (kern.launches - l0[0], ops.single_store_launches - l0[1])
+    one = read_path.fused_read(hs.ensure_bank(), enc, texts, thr, specs)
+
+    def payloads(hier, d):
+        out = []
+        for li, (_, c) in enumerate(hier._levels()):
+            joined = c.store.join_candidates(d.scores[:, li], d.idx[:, li], touch=False)
+            out.append([[(e.query, e.response) for _, e in row] for row in joined])
+        return out
+
+    live = np.isfinite(one.scores)
+    s_err = float(np.abs(dec.scores[live] - one.scores[live]).max())
+    same = (_decisions_equal(dec, one) and payloads(h, dec) == payloads(hs, one)
+            and np.array_equal(np.isfinite(dec.scores), live) and s_err <= TOL)
+    print(f"sharded: vs single-device fused_read B={len(texts)} decisions+payloads "
+          f"identical={same} winner={dec.winner.tolist()} score_max_abs_err={s_err:.3e} "
+          f"launches B1+B2={spent[0]} of which B2={spent[1]}")
+    if not same or spent != (per * (1 + n_shards), per * n_shards):
+        raise AssertionError("the sharded read differs from the single-device read, "
+                             f"or launched {spent} != ({1 + n_shards}, {n_shards})")
+    del hs
+    free_card()
+
+    # 2-4. the same read on the card and on the CPU copy: decisions, global
+    # ids, counter deltas; then with a dead position; then the lifecycle route
+    def pair_read(label, **kw):
+        res = []
+        for hier in (h, hc):
+            b = hier.ensure_sharded_bank()
+            before = [x.counters_host()[:2] for x in b.banks()]
+            k0 = kern.launches
+            d = b.fused_read(enc, texts, thr, specs, vecs=dec.vecs, **kw)
+            # the count deltas, and which slots got a new recency stamp (the
+            # stamps' values follow each bank's own tick clock)
+            deltas = [[x.counters_host()[0] != y[0], x.counters_host()[1] - y[1]]
+                      for x, y in zip(b.banks(), before)]
+            res.append((d, deltas, kern.launches - k0, b))
+        (dk, ck, nk, bk), (dp, cp, _, bp) = res
+        live = np.isfinite(dp.scores)
+        err = float(np.abs(dk.scores[live] - dp.scores[live]).max())
+        ok = (_decisions_equal(dk, dp) and np.array_equal(np.isfinite(dk.scores), live)
+              and np.array_equal(dk.idx[live], dp.idx[live]) and err <= TOL
+              and all(np.array_equal(x, y) for a, b in zip(ck, cp) for x, y in zip(a, b)))
+        print(f"sharded: card vs cpu {label} decisions+global_ids+counter_deltas identical={ok} "
+              f"winner={dk.winner.tolist()} score_max_abs_err={err:.3e} launches={nk} "
+              f"degraded_reads={bk.degraded_reads}/{bp.degraded_reads}")
+        if not ok:
+            raise AssertionError(f"the sharded read on the card differs from the CPU's ({label})")
+        return dk, nk
+
+    _, nk = pair_read("kernel-route")
+    if nk != per * (1 + n_shards):
+        raise AssertionError(f"kernel route launched {nk}")
+    dead = int(dec.idx[0, 1, 0]) // l2s.cap_local  # the position of row 0's best L2 entry
+    mask = np.arange(n_shards) != dead
+    dm, nk = pair_read(f"shard_mask(dead={dead})", shard_mask=mask)
+    owners = dm.idx[:, 1][np.isfinite(dm.scores[:, 1])] // l2s.cap_local
+    if nk != per * n_shards or (owners == dead).any() or srb.degraded_reads != 1:
+        raise AssertionError(f"a dead position served or launched ({nk} launches)")
+    clock = StoreBank.rel_now()
+    saved = StoreBank.__dict__["rel_now"]
+    StoreBank.rel_now = staticmethod(lambda: clock)
+    try:
+        for hier in (h, hc):  # TTL'd copies of 8 entries, and a staleness weight
+            st = hier.l2.store
+            st.add_batch(dec.vecs, [f"ttl {i}" for i in range(8)], [f"ttl answer {i}" for i in range(8)],
+                         ttls=[3600.0] * 8)
+            for lane in range(st.n_shards):
+                st.bank.set_staleness(lane, 0.05)
+        clock += 900.0
+        _, nk = pair_read("lifecycle-route(ttl=3600 s, staleness=0.05, age=900 s)")
+    finally:
+        StoreBank.rel_now = saved
+    # L2's lifecycle is active and L1's is not: B1 over L1, no B2
+    if (not l2s.bank.lifecycle_active() or srb.rep_bank.lifecycle_active()
+            or nk != per):
+        raise AssertionError(f"the lifecycle route launched {nk} kernels, not {per}")
+    del h, hc, srb, l2s
+    free_card()
+
+    # 5. the one-card deployment: make_cache_mesh() (one position per card)
+    mesh1 = make_cache_mesh() if on_card else make_cache_mesh(device=dev)
+    st1 = ShardedVectorStore(mesh1, enc.dim, l1_cap, k=TOPK, use_pallas=True)
+    m = int(0.85 * l1_cap)
+    d1 = sharded_hierarchy(enc, knobs, tuple(x[-m:] for x in fill), st1, dev, l1_cap, l2_cap)
+    b1 = d1.ensure_sharded_bank()
+    k0 = kern.launches
+    got = b1.fused_read(enc, texts, thr, specs, touch=False)
+    nk = kern.launches - k0
+    st1.use_pallas = b1.rep_bank.use_pallas = False  # the same read, plain route
+    ref = b1.fused_read(enc, texts, thr, specs, touch=False)
+    st1.use_pallas = b1.rep_bank.use_pallas = True
+    live = np.isfinite(ref.scores)
+    err = float(np.abs(got.scores[live] - ref.scores[live]).max())
+    ok = (_decisions_equal(got, ref) and np.array_equal(got.idx[live], ref.idx[live])
+          and err <= TOL and nk == per * (1 + b1.n_shards))
+    print(f"sharded: make_cache_mesh() positions={b1.n_shards} devices="
+          f"{[str(d) for d in mesh1.devices.flat]} kernel-vs-plain route identical={ok} "
+          f"winner={got.winner.tolist()} score_max_abs_err={err:.3e} launches={nk}")
+    if not ok:
+        raise AssertionError("the one-card deployment's kernel read differs from its plain read")
+    del d1, b1, st1
+    free_card()
+
+    # 6. a fresh sharded hierarchy: read p50 per bucket, launches, device
+    # time and busy share, then the replay through CacheService
+    h = sharded_hierarchy(enc, knobs, fill, sharded(dev), dev, l1_cap, l2_cap)
+    srb = h.ensure_sharded_bank()
+    parts = []
+    for B in (1, 2, 4, 8):
+        tb = [q for q, _ in (traffic * 2)[:B]]
+        thr_b = thresholds(h, tb)
+        ts = []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            srb.fused_read(enc, tb, thr_b, specs)
+            ts.append((time.perf_counter() - t1) * 1e3)
+        parts.append(f"B{B}={statistics.median(ts[2:]):.3f}")
+    print(f"sharded: fused_read p50_ms {' '.join(parts)} positions={n_shards} [{gpu}]")
+    tb = [q for q, _ in traffic[:8]]
+    thr_b = thresholds(h, tb)
+    reads = 10
+    sync()
+    l0 = (kern.launches, ops.single_store_launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(reads):
+            srb.fused_read(enc, tb, thr_b, specs)
+        sync()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / reads
+    b1_n = (kern.launches - l0[0] - (ops.single_store_launches - l0[1])) / reads
+    b2_n = (ops.single_store_launches - l0[1]) / reads
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in events) / 1e3 / reads
+    topk_ms = sum(e.device_time_total for e in events
+                  if any(t in e.name for t in ("topk_stream", "topk_tiles", "merge_lanes"))) / 1e3 / reads
+    busy = f"{device_ms / wall_ms:.3f}" if device_ms > 0 else "not measured (empty trace)"
+    print(f"sharded: profile fused_read B=8 wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} "
+          f"similarity_topk_ms={topk_ms:.3f} busy_share={busy} "
+          f"kernels_per_read={sum(1 for e in events if not e.name.startswith(('Memcpy', 'Memset'))) / reads:.1f} "
+          f"launches_per_read B1={b1_n:g} B2={b2_n:g} [{gpu}]")
+    if (b1_n, b2_n) != (per, per * n_shards):
+        raise AssertionError(f"launches per read B1={b1_n} B2={b2_n}")
+    if on_card:  # B2 at one position's shape in this read
+        b2_times(kern, dev, gpu, Q=len(tb), N=l2_cap // n_shards)
+
+    llm = ModelBackend(LLM, engine)
+    client = EnhancedClient(cache=h.l1, hierarchy=h)
+    client.register_backend(llm)
+    service = CacheService(client, max_batch=8, max_wait_ms=2.0)
+    service.submit(CacheRequest("warm-up question about nothing",
+                                max_tokens=NEW_TOKENS)).result(timeout=300)
+    kern.reset_launches()
+    ops.reset_single_store_launches()
+    reset_engine_launches()
+    d0 = srb.dispatches
+    m0 = dict(engine.metrics)
+    futs = [service.submit(CacheRequest(q, max_tokens=NEW_TOKENS)) for q, _ in traffic]
+    resps = [f.result(timeout=600) for f in futs]
+    launches = {"similarity_topk_lanes": kern.launches, "similarity_topk": ops.single_store_launches,
+                **engine_launches()}
+    reads = srb.dispatches - d0
+    service.close()
+    client.close()
+    if h._sharded_bank is not srb:
+        raise AssertionError("the hierarchy left its sharded read during the traffic")
+    hits = [r for r in resps if r.from_cache and not r.cache_result.generative]
+    gen = [r for r in resps if r.from_cache and r.cache_result.generative]
+    miss = [r for r in resps if r.status == "generated"]
+    if len(hits) + len(gen) + len(miss) != len(resps) or not all(r.text for r in resps):
+        raise AssertionError(f"unexpected statuses: {[r.status for r in resps]}")
+    if not (hits and gen and miss):
+        raise AssertionError("the sharded traffic must show semantic hits, generative hits and misses")
+    prefills = (engine.metrics["prefill_tokens"] - m0["prefill_tokens"]) // PROMPT
+    steps = engine.metrics["decode_steps"] - m0["decode_steps"]
+    expect = {"similarity_topk_lanes": per * (1 + n_shards) * reads,
+              "similarity_topk": per * n_shards * reads,
+              **expected_launches(engine.cfg, prefills, steps, on_card)}
+    p50 = lambda rs: statistics.median(r.latency_s for r in rs) * 1e3  # noqa: E731
+    ratio = p50(miss) / p50(hits + gen)
+    print(f"sharded: traffic llm={llm.name} requests={len(resps)} hits={len(hits)} "
+          f"generative_hits={len(gen)} misses={len(miss)} hit_p50_ms={p50(hits + gen):.3f} "
+          f"miss_p50_ms={p50(miss):.3f} miss_over_hit_p50={ratio:.2f} "
+          f"gate_5x={'pass' if ratio >= 5 else 'FAIL'} sharded_reads={reads} "
+          f"engine_prefills={prefills} engine_decode_steps={steps} launches={launches} "
+          f"service={service.stats} [{gpu}]")
+    if launches != expect or reads == 0 or prefills == 0:
+        raise AssertionError(f"sharded traffic launches {launches} != {expect}")
+    if ratio < 5 and on_card:
+        raise AssertionError(f"the sharded replay's hit p50 is not 5x below its miss p50 ({ratio:.2f})")
+    del h, srb, service, client
+    free_card()
 
 
 def profile_read(read, prepare, gpu, reads=10):
@@ -1895,6 +2230,9 @@ def main() -> int:
                     help="only the llama4-scout and deepseek-v3 phases: B4 at (192, 128) and "
                          "B3/B4 at llama4's shapes (checks and times), their moe:, model:, "
                          "engine: and profile: lines, then stop")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="only the sharded read path: B1/B2 and B3/B4 built, the sharded: "
+                         "lines (checks, read p50, profile, the qwen1.5-0.5b replay), then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -1920,7 +2258,20 @@ def main() -> int:
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
     build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
-              else "ssd" if args.ssd_only else None)
+              else "ssd" if args.ssd_only else "sharded" if args.sharded_only else None)
+    if args.sharded_only:
+        from repro_torch.configs import get_config
+        from repro_torch.configs.contriever import CONTRIEVER_MSMARCO
+        from repro_torch.core import ContrieverEncoder
+        from repro_torch.serving.engine import ServingEngine
+
+        enc = ContrieverEncoder(CONTRIEVER_MSMARCO, seed=SEED, device=dev)
+        engine = ServingEngine(get_config(LLM), max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
+                               seed=SEED, device=dev)
+        engine.generate([list(range(1, 9))], max_new_tokens=2)  # warm-up
+        sharded_phase(dev, gpu, enc, engine)
+        print(f"sharded-only: done [{gpu}]")
+        return 0
     if args.moe_only:
         moe_slice(dev, gpu, checks=True)
         print(f"moe-only: done [{gpu}]")
@@ -2006,6 +2357,9 @@ def main() -> int:
     del backends
     torch.cuda.empty_cache()
     launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
+    # the sharded read path, with the qwen engine behind its replay, before
+    # the MoE phases' host copies
+    sharded_phase(dev, gpu, enc, engine)
     del engine, ssm_engine, enc
     free_card()
     arch_rest(dev, gpu)

@@ -25,9 +25,10 @@ costs no extra dispatch — lower-level winners are promoted into L1 via one
 generative pass over the already searched candidates. Levels that cannot
 share a bank fall back to one dispatch per level.
 
-The reference's key-sharded tier (``ensure_sharded_bank`` over a
-``ShardedVectorStore`` mesh, with its ``router`` lane mask) is not ported
-yet: every level here is a single-device ``InMemoryVectorStore`` lane.
+Over a device mesh this topology maps to replicated hot L1 lanes and a
+key-sharded L2 (``repro_torch.distributed``); this module is the
+level-coordination logic, shared by the host-side client and the
+mesh-sharded store.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ class HierarchicalCache:
         generative_across_levels: bool = True,
         fused: bool = True,
         device_decide: bool = True,
+        router=None,
     ):
         self.l1 = l1
         self.l2 = l2
@@ -60,6 +62,12 @@ class HierarchicalCache:
         self.inclusive = inclusive
         self.promote = promote
         self.generative_across_levels = generative_across_levels
+        # optional lane-visibility policy for sharded deployments: a callable
+        # ``(queries, contexts) -> [n, L] bool`` mask; a False cell hides that
+        # level's candidates from that query inside the read (the mask rides
+        # the sharded read — no per-shard host loop). Only the sharded read
+        # tier consults it; host tiers ignore the knob.
+        self.router = router
         # fused=True stacks the level stores into one StoreBank so a batched
         # lookup searches every level in ONE device dispatch; levels whose
         # stores cannot be banked (custom subclass, mixed dim, aliased
@@ -71,6 +79,7 @@ class HierarchicalCache:
         self.fused = fused
         self.device_decide = device_decide
         self._shared_bank: Optional[StoreBank] = None
+        self._sharded_bank = None  # ShardedReadBank when a level is sharded
 
     def _levels(self):
         out = [("L1", self.l1)]
@@ -121,6 +130,56 @@ class HierarchicalCache:
             return bank
         self._shared_bank = StoreBank.adopt(stores)
         return self._shared_bank
+
+    def ensure_sharded_bank(self):
+        """Build (or revalidate) the ``ShardedReadBank`` serving this
+        hierarchy's mixed replicated/sharded deployment: levels backed by a
+        ``ShardedVectorStore`` keep their key-sharded lanes on the mesh, hot
+        levels backed by a stock ``InMemoryVectorStore`` are adopted into
+        one bank on the mesh's first device, and one read serves them all
+        (repro_torch.distributed.sharded_read).
+
+        Returns None — keeping the single-device tiers — when no level is
+        sharded, or when the levels cannot share one read: a customized
+        cache/store subclass, stores on different meshes, the same store at
+        two levels, mixed dim, or a metric outside cosine/dot."""
+        from repro_torch.distributed.sharded_read import ShardedReadBank
+        from repro_torch.distributed.sharded_store import ShardedVectorStore, _shard_axes
+
+        caches = [c for _, c in self._levels()]
+        stores = [c.store for c in caches]
+        for c in caches:
+            if type(c).search_candidates is not SemanticCache.search_candidates:
+                return None
+        members = []
+        meshes = []
+        for s in stores:
+            if type(s) is ShardedVectorStore:
+                members.append(("sh", s))
+                meshes.append(s.mesh)
+            elif (
+                isinstance(s, InMemoryVectorStore)
+                and type(s).search_batch is InMemoryVectorStore.search_batch
+                and type(s).join_candidates is InMemoryVectorStore.join_candidates
+            ):
+                members.append(("rep", s))
+            else:
+                return None
+        if not meshes:  # all-replicated hierarchy: ensure_bank covers it
+            return None
+        if len({id(m) for m in meshes}) != 1 or not _shard_axes(meshes[0]):
+            return None
+        if len({id(s) for s in stores}) != len(stores):
+            return None
+        if len({s.dim for s in stores}) != 1:
+            return None
+        if any(s.metric not in ("cosine", "dot") for s in stores):
+            return None
+        srb = self._sharded_bank
+        if srb is not None and srb.intact(stores):
+            return srb
+        self._sharded_bank = ShardedReadBank(meshes[0], members)
+        return self._sharded_bank
 
     # -- stale-if-error walk (degraded path; resilience subsystem) -------------
 
@@ -242,10 +301,16 @@ class HierarchicalCache:
         decision and applied as ``add_batch`` scatters, so in-batch queries
         never observe each other.
 
-        Read tiers, fastest eligible wins: (a) the fused read program —
-        embed forward, banked [L, cap, D] search, per-level decide masks,
-        the L1>L2>peers winner walk, and the recency/frequency touch
-        scatter on device, one search launch per batch, with
+        Read tiers, fastest eligible wins: (a0) the SHARDED read — when a
+        level's store is key-sharded over a mesh, one read embeds, searches
+        replicated hot lanes and each position's sharded lanes, merges only
+        tiny [B, k] candidate sets, and applies the router mask + decide +
+        winner walk + counter touches on device
+        (repro_torch.distributed.sharded_read); (a) the single-device fused
+        read program — embed forward, banked [L, cap, D] search, per-level
+        decide masks, the L1>L2>peers winner walk, and the
+        recency/frequency touch scatter on device, one search launch per
+        batch, with
         host code only materializing ``CacheResult``s for decided winners
         and residual-miss pool rows; (b) the banked host-decide path (one
         fused search dispatch, decide on host) when a level customizes its
@@ -278,9 +343,12 @@ class HierarchicalCache:
             ],
             np.float64,
         ).T
-        bank = self.ensure_bank() if self.fused else None
+        # sharded tier first: when any level's store is key-sharded over a
+        # mesh, the whole hierarchy reads through ONE sharded read
+        srb = self.ensure_sharded_bank() if self.fused else None
+        bank = self.ensure_bank() if (self.fused and srb is None) else None
         dec = None
-        if bank is not None and self.device_decide:
+        if (srb is not None or bank is not None) and self.device_decide:
             from repro_torch.core import read_path
 
             specs = [
@@ -288,9 +356,19 @@ class HierarchicalCache:
             ]
             if all(sp is not None for sp in specs):
                 t0s = time.perf_counter()
-                dec = read_path.fused_read(
-                    bank, self.l1.embedder, queries, thr, specs, vecs=vecs
-                )
+                if srb is not None:
+                    router = (
+                        self.router(queries, contexts)
+                        if self.router is not None else None
+                    )
+                    dec = srb.fused_read(
+                        self.l1.embedder, queries, thr, specs,
+                        vecs=vecs, router=router,
+                    )
+                else:
+                    dec = read_path.fused_read(
+                        bank, self.l1.embedder, queries, thr, specs, vecs=vecs
+                    )
                 # the program is indivisible, so search_time_s absorbs the
                 # whole fused wall time (embed leg included) split evenly —
                 # slightly broader than the host tiers' search-only share

@@ -42,6 +42,9 @@ from repro_torch.kernels.backend import (
 
 _KERNEL_METRICS = ("cosine", "dot")  # metrics the kernel path covers
 _INT32_MIN = np.iinfo(np.int32).min
+# device dtype of each pending-insert column (``StoreBank._pending_columns``)
+_COLUMN_DTYPES = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
+                  np.dtype(np.float32): torch.float32}
 # renumber the logical event clock well before int32 saturates (headroom for
 # one batch worth of ticks past the check)
 _TICK_COMPACT_AT = np.iinfo(np.int32).max - (1 << 20)
@@ -124,6 +127,12 @@ def _bank_scatter(bank: "StoreBank", lane: int, idxs: torch.Tensor, rows: torch.
     bank.buf[lane, idxs] = rows
     bank.valid[lane, idxs] = True
     _bank_counter_set(bank, *counters)
+
+
+def upload_columns(cols: Tuple[np.ndarray, ...], device: torch.device) -> tuple:
+    """Host pending-insert columns (``StoreBank._pending_columns``) as
+    device scatter tensors."""
+    return tuple(to_device(a, device, _COLUMN_DTYPES[a.dtype]) for a in cols)
 
 
 def _bank_counter_set(bank: "StoreBank", c_lanes, c_idxs, c_ticks, c_seqs, c_cnts,
@@ -242,23 +251,14 @@ class StoreBank:
         # cosine lanes hold unit rows: normalize once at insert, never at search
         self.prenorm: Tuple[bool, ...] = tuple(m == "cosine" for m in self.metrics)
         shape = (self.L, self.cap)
-        dev = self.device
-        self.buf = torch.zeros((self.L, self.cap, dim), dtype=torch.float32, device=dev)
-        self.valid = torch.zeros(shape, dtype=torch.bool, device=dev)
-        # per-lane recency/frequency/insertion counters: DEVICE tensors.
-        # last_access holds logical event ticks, one tick per touch event
-        self.d_last_access = torch.zeros(shape, dtype=torch.int32, device=dev)
-        self.d_access_count = torch.zeros(shape, dtype=torch.int32, device=dev)
-        self.d_insert_seq = torch.zeros(shape, dtype=torch.int32, device=dev)
+        self._alloc_device(shape)
         self._mirror: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = (
             np.zeros(shape, np.int32), np.zeros(shape, np.int32), np.zeros(shape, np.int32),
         )
-        # entry lifecycle: created/expires stamps (seconds relative to the
-        # process _EPOCH). The device float32 copies feed the fused read's
-        # expiry mask + staleness penalty; the float64 host arrays are the
-        # source of truth (lifecycle only changes on host-initiated paths)
-        self.d_created = torch.zeros(shape, dtype=torch.float32, device=dev)
-        self.d_expires = torch.full(shape, float("inf"), dtype=torch.float32, device=dev)
+        # entry lifecycle: the float64 host arrays of the created/expires
+        # stamps are the source of truth (lifecycle only changes on
+        # host-initiated paths); their device float32 copies are d_created
+        # and d_expires
         self.h_created = np.zeros(shape, np.float64)
         self.h_expires = np.full(shape, np.inf, np.float64)
         # per-lane staleness weight: an aging entry's effective score drops by
@@ -273,6 +273,21 @@ class StoreBank:
         self.counter_scatters = 0  # standalone counter scatters (non-fused paths)
         self.free_scatters = 0  # slot-free updates (remove/clear; off the read path)
         self.host_hops = 0  # host<->device data hops on the search path
+
+    def _alloc_device(self, shape: Tuple[int, int]) -> None:
+        """The device tensors: rows, masks, counters and lifecycle stamps."""
+        dev = self.device
+        self.buf = torch.zeros((*shape, self.dim), dtype=torch.float32, device=dev)
+        self.valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+        # per-lane recency/frequency/insertion counters: DEVICE tensors.
+        # last_access holds logical event ticks, one tick per touch event
+        self.d_last_access = torch.zeros(shape, dtype=torch.int32, device=dev)
+        self.d_access_count = torch.zeros(shape, dtype=torch.int32, device=dev)
+        self.d_insert_seq = torch.zeros(shape, dtype=torch.int32, device=dev)
+        # created/expires stamps (seconds relative to the process _EPOCH),
+        # for the fused read's expiry mask + staleness penalty
+        self.d_created = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.d_expires = torch.full(shape, float("inf"), dtype=torch.float32, device=dev)
 
     # -- metric helpers --------------------------------------------------------
 
@@ -451,9 +466,10 @@ class StoreBank:
         self.h_expires[lane, idx] = expires
         self._pending.append((lane, idx, tick, seq, count, created, expires))
 
-    def _drain_pending(self) -> tuple:
-        """Pending insert-counter updates as device scatter tensors
-        (last-wins dedupe per slot)."""
+    def _pending_columns(self) -> Tuple[np.ndarray, ...]:
+        """Pending insert-counter updates as host columns (lanes, idxs,
+        ticks, seqs, counts, created, expires), last-wins dedupe per slot;
+        the pending list is emptied."""
         last_wins: Dict[Tuple[int, int], Tuple[int, int, int, float, float]] = {}
         for lane, idx, tick, seq, count, created, expires in self._pending:
             last_wins[(lane, idx)] = (tick, seq, count, created, expires)
@@ -461,16 +477,20 @@ class StoreBank:
         n = len(last_wins)
         keys = list(last_wins)
         vals = list(last_wins.values())
-        cols = (
-            (np.fromiter((k[0] for k in keys), np.int64, n), torch.int64),
-            (np.fromiter((k[1] for k in keys), np.int64, n), torch.int64),
-            (np.fromiter((v[0] for v in vals), np.int32, n), torch.int32),
-            (np.fromiter((v[1] for v in vals), np.int32, n), torch.int32),
-            (np.fromiter((v[2] for v in vals), np.int32, n), torch.int32),
-            (np.fromiter((v[3] for v in vals), np.float32, n), torch.float32),
-            (np.fromiter((v[4] for v in vals), np.float32, n), torch.float32),
+        return (
+            np.fromiter((k[0] for k in keys), np.int64, n),
+            np.fromiter((k[1] for k in keys), np.int64, n),
+            np.fromiter((v[0] for v in vals), np.int32, n),
+            np.fromiter((v[1] for v in vals), np.int32, n),
+            np.fromiter((v[2] for v in vals), np.int32, n),
+            np.fromiter((v[3] for v in vals), np.float32, n),
+            np.fromiter((v[4] for v in vals), np.float32, n),
         )
-        return tuple(self._to_dev(a, dt) for a, dt in cols)
+
+    def _drain_pending(self) -> tuple:
+        """Pending insert-counter updates as device scatter tensors
+        (last-wins dedupe per slot)."""
+        return upload_columns(self._pending_columns(), self.device)
 
     def flush_pending(self) -> None:
         """Push deferred insert-counter updates to device (normally they ride
@@ -478,9 +498,24 @@ class StoreBank:
         that read counters between a claim and its ``set_rows``)."""
         if not self._pending:
             return
-        cl, ci, ct, cs, cc, ccr, cex = self._drain_pending()
+        cols = self._pending_columns()
         self.counter_scatters += 1
-        _bank_counter_set(self, cl, ci, ct, cs, cc, ccr, cex)
+        self._device_counter_set(cols)
+
+    # -- device hooks (a sharded bank splits each update by position) ----------
+
+    def _device_counter_set(self, cols: Tuple[np.ndarray, ...]) -> None:
+        _bank_counter_set(self, *upload_columns(cols, self.device))
+
+    def _device_touch(self, lanes: np.ndarray, idxs: np.ndarray, tick: int) -> None:
+        _bank_touch(
+            self.d_last_access, self.d_access_count,
+            self._to_dev(lanes, torch.int64), self._to_dev(idxs, torch.int64),
+            torch.ones(lanes.size, dtype=torch.int32, device=self.device), tick,
+        )
+
+    def _device_free(self, lanes: np.ndarray, idxs: np.ndarray) -> None:
+        _bank_free(self, self._to_dev(lanes, torch.int64), self._to_dev(idxs, torch.int64))
 
     def touch_slots(self, lanes, idxs) -> None:
         """Bump recency/frequency for N (lane, idx) pairs in ONE in-place
@@ -496,11 +531,7 @@ class StoreBank:
             ml[lanes, idxs] = tick
             np.add.at(mc, (lanes, idxs), 1)
         self.counter_scatters += 1
-        _bank_touch(
-            self.d_last_access, self.d_access_count,
-            self._to_dev(lanes, torch.int64), self._to_dev(idxs, torch.int64),
-            torch.ones(lanes.size, dtype=torch.int32, device=self.device), tick,
-        )
+        self._device_touch(lanes, idxs, tick)
 
     # -- device updates --------------------------------------------------------
 
@@ -544,7 +575,7 @@ class StoreBank:
         self.h_created[lanes, idxs] = 0.0
         self.h_expires[lanes, idxs] = np.inf
         self.free_scatters += 1
-        _bank_free(self, self._to_dev(lanes, torch.int64), self._to_dev(idxs, torch.int64))
+        self._device_free(lanes, idxs)
 
     def compact_seqs(self) -> int:
         """Rank-rebase the insert_seq counters before the int32 insertion
@@ -634,16 +665,16 @@ class StoreBank:
     # -- composition -----------------------------------------------------------
 
     @classmethod
-    def adopt(cls, stores: Sequence) -> "StoreBank":
+    def adopt(cls, stores: Sequence, device: DeviceLike = None) -> "StoreBank":
         """Stack live lane-view stores into ONE shared bank on their common
-        device and repoint each store at its row. Contents (rows, masks,
-        counters, lifecycle stamps) are copied from each store's current
-        bank lane (device to device), so adoption is transparent to the
-        stores' own add/search/remove paths."""
+        device (or on ``device``, when given) and repoint each store at its
+        row. Contents (rows, masks, counters, lifecycle stamps) are copied
+        from each store's current bank lane (device to device), so adoption
+        is transparent to the stores' own add/search/remove paths."""
         dims = {s.dim for s in stores}
         if len(dims) != 1:
             raise ValueError(f"cannot stack stores with mixed dim: {dims}")
-        devices = {s._bank.device for s in stores}
+        devices = {s._bank.device for s in stores} if device is None else {resolve_device(device)}
         if len(devices) != 1:
             raise ValueError(f"cannot stack stores on different devices: {devices}")
         for s in stores:

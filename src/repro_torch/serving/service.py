@@ -157,7 +157,11 @@ class CacheService:
         # the banked one-dispatch lookup, not the adoption copy
         if client.hierarchy is not None:
             with self._cache_lock:
-                getattr(client.hierarchy, "ensure_bank", lambda: None)()
+                h = client.hierarchy
+                # sharded tier first (mirrors lookup_batch's tier order);
+                # an all-replicated hierarchy falls through to the bank
+                if getattr(h, "ensure_sharded_bank", lambda: None)() is None:
+                    getattr(h, "ensure_bank", lambda: None)()
 
     # -- async API -------------------------------------------------------------
 

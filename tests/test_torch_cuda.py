@@ -735,3 +735,85 @@ def test_moe_engine_on_the_card_matches_its_cpu_run(dev):
             assert fk.launches - f0 == cfg.num_layers * len(prompts)
             assert dk.launches - d0 == cfg.num_layers * eng.metrics["decode_steps"]
     assert outs["cuda"] == outs["cpu"]
+
+
+def _sharded_read_pair(d, metric, lifecycle, n=8, cap=8 * 320, dim=64):
+    """Replicated L1 + an 8-position sharded L2 on device ``d``, filled from
+    one seed: dyadic rows under dot (every score exact), Gaussian under
+    cosine. ``lifecycle`` stamps TTLs and a staleness weight."""
+    from repro_torch.core.vector_store import InMemoryVectorStore
+    from repro_torch.distributed.sharded_read import ShardedReadBank
+    from repro_torch.distributed.sharded_store import ShardedVectorStore
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    rng = np.random.default_rng(23)
+
+    def rows(m):
+        if metric == "dot":
+            return rng.integers(0, 5, size=(m, dim)).astype(np.float32) / 4
+        return rng.standard_normal((m, dim)).astype(np.float32)
+
+    mesh = make_cache_mesh(n, device=d)
+    rep = InMemoryVectorStore(dim, 300, metric, use_pallas=True, device=d)
+    sh = ShardedVectorStore(mesh, dim, cap, k=4, metric=metric, use_pallas=True,
+                            staleness_weight=0.25 if lifecycle else 0.0)
+    r1, r2 = rows(280), rows(cap - 200)
+    rep.add_batch(r1, [f"l1q{i}" for i in range(280)], [f"l1a{i}" for i in range(280)])
+    ttls = [30.0 if (lifecycle and i % 3 == 0) else None for i in range(len(r2))]
+    sh.add_batch(r2, [f"l2q{i}" for i in range(len(r2))], [f"l2a{i}" for i in range(len(r2))],
+                 ttls=ttls)
+    return rep, sh, ShardedReadBank(mesh, [("rep", rep), ("sh", sh)]), np.concatenate([
+        r1[:3], r2[5:10], rows(4)])
+
+
+@pytest.mark.parametrize("route,metric", [("kernel", "dot"), ("lifecycle", "dot"),
+                                          ("kernel", "cosine")])
+def test_sharded_read_on_the_card_matches_the_cpu(route, metric, dev, monkeypatch):
+    """A read at 8 positions on the card against the same read on the CPU:
+    the kernel route (B1 over the hot lanes and B2 at each position) and
+    the lifecycle route (TTLs and a staleness penalty before the top-k on
+    L2, which takes the plain route; L1 has no lifecycle and keeps B1).
+    Decisions, global ids and counter deltas are equal; scores
+    too under dot (dyadic rows), within 2e-5 under cosine."""
+    from repro_torch.core.read_path import LevelSpec
+    from repro_torch.core.store_bank import StoreBank
+
+    lifecycle = route == "lifecycle"
+    clock = [100.0]
+    monkeypatch.setattr(StoreBank, "rel_now", staticmethod(lambda: clock[0]))
+    t_single, t_comb, t_s = (22.0, 60.0, 20.0) if metric == "dot" else (0.5, 1.2, 0.9)
+    specs = (LevelSpec(False, True, 0.0, float("inf"), 0, 4),
+             LevelSpec(True, True, t_single, t_comb, 4, 4))
+    got = []
+    for d in (dev, torch.device("cpu")):
+        clock[0] = 100.0
+        rep, sh, srb, q = _sharded_read_pair(d, metric, lifecycle)
+        clock[0] = 115.0
+        thr = np.full((len(q), 2), t_s, np.float32)
+        thr[-4:] = 1e6  # the fresh rows cannot hit semantically
+        assert srb.lifecycle_active() == lifecycle
+        before = [b.counters_host()[:2] for b in srb.banks()]
+        launches = (tk.launches, tops.single_store_launches)
+        dec = srb.fused_read(None, [None] * len(q), thr, specs, vecs=q,
+                             shard_mask=np.arange(8) != 3)
+        spent = (tk.launches - launches[0], tops.single_store_launches - launches[1])
+        on_card = d.type == "cuda"
+        # B1 + B2 x 7 live positions; on the lifecycle route B1 alone
+        assert spent == (((1, 0) if lifecycle else (8, 7)) if on_card else (0, 0))
+        after = [b.counters_host()[:2] for b in srb.banks()]
+        deltas = [[a - b for a, b in zip(x, y)] for x, y in zip(after, before)]
+        got.append((dec, deltas))
+    (dk, ck), (dp, cp) = got
+    for name in ("winner", "hit", "generative"):
+        np.testing.assert_array_equal(getattr(dk, name), getattr(dp, name))
+    live = np.isfinite(dp.scores)
+    np.testing.assert_array_equal(np.isfinite(dk.scores), live)
+    np.testing.assert_array_equal(dk.idx[live], dp.idx[live])
+    if metric == "dot":
+        np.testing.assert_array_equal(dk.scores, dp.scores)
+    else:
+        np.testing.assert_allclose(dk.scores[live], dp.scores[live], **TOL)
+    for a, b in zip(ck, cp):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert (dk.winner < 2).any() and dk.hit.shape == (len(dk.winner), 2)

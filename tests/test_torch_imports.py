@@ -48,7 +48,8 @@ def test_no_jax_or_reference_import(path):
 def test_serving_stack_import_leaves_jax_out():
     code = (
         "import sys, repro_torch, repro_torch.serving.service, repro_torch.core, "
-        "repro_torch.serving.engine, repro_torch.models.ssm, repro_torch.kernels.ssd_scan; "
+        "repro_torch.serving.engine, repro_torch.models.ssm, repro_torch.kernels.ssd_scan, "
+        "repro_torch.distributed.sharded_read, repro_torch.launch.mesh; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'repro' not in sys.modules, 'repro imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
@@ -69,6 +70,7 @@ def test_every_module_imports_without_a_build():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     assert "repro_torch.serving.service" in names and len(names) > 25
     assert "repro_torch.models.ssm" in names and "repro_torch.kernels.ssd_scan.kernel" in names
+    assert "repro_torch.distributed.sharded_read" in names and "repro_torch.launch.mesh" in names
     for name in names:
         importlib.import_module(name)
     if not torch.cuda.is_available():
