@@ -5,7 +5,7 @@ vision, audio, SSM, hybrid and MoE models).
 
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
-                           | --moe-only | --sharded-only] [--src DIR]
+                           | --moe-only | --sharded-only | --gateway-only] [--src DIR]
 
 It builds the port's four CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
@@ -87,7 +87,17 @@ one-card deployment, kernel route against plain; the read's p50 per
 bucket B = 1..8; one read's device ms, busy share and launches, B1 once
 and B2 once per position; 64 requests through ``CacheService`` over a
 sharded hierarchy, misses answered by the qwen1.5-0.5b engine, with the
-5x gate), the
+5x gate), ``gateway:`` (the HTTP gateway over the main path's stack with
+the qwen1.5-0.5b engine, on 127.0.0.1: 8 requests one at a time over
+HTTP against an identically filled in-process twin, classes, levels and
+answer text identical, streamed replies byte-identical; the 64-request
+burst over HTTP, half streamed, with its launches and gate, and the
+wire's cost per class against ``traffic:``'s in-process p50; the traffic
+harness's paced workload of 256 requests from 24 users in process and
+over HTTP, per-class p50/p95/p99, sheds, 504s, errors and the drain),
+``serve:`` (``repro_torch.launch.serve.main`` at ``--requests 8``, then
+with ``--coalesce``, then ``--shards 8``: the HIT/MISS sequence, counts,
+mesh positions and launches), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
 ``engine: musicgen-large model-level``, then the MoE models' lines, last
 so that the host copies of their float32 lines come after every
@@ -110,7 +120,10 @@ lines, the qwen3-8b and zamba2-7b replays, the other engines),
 ``--moe-only`` only the MoE models' lines (B4 at (192, 128) and B3/B4 at
 llama4's shapes, checked and timed; ``moe:``, ``model:``, ``engine:``,
 ``profile:``), ``--sharded-only`` only the ``sharded:`` lines (B1/B2
-and B3/B4 built, the qwen1.5-0.5b engine for the replay), and
+and B3/B4 built, the qwen1.5-0.5b engine for the replay),
+``--gateway-only`` only the ``gateway:`` and ``serve:`` lines (the same
+build and engine; the wire's cost against ``traffic:`` is then not
+printed), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -421,8 +434,9 @@ def kernel_times(kern, dev, gpu):
 
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
-    library's build time. ``only`` = "attention", "topk", "ssd" or
-    "sharded" (B1/B2 and B3/B4) builds those kernels' libraries alone."""
+    library's build time. ``only`` = "attention", "topk", "ssd", or
+    "sharded" or "gateway" (B1/B2 and B3/B4) builds those kernels'
+    libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -436,7 +450,7 @@ def build_all(only=None):
         return lib.src.name, time.perf_counter() - t0
 
     libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
-            "sharded": [tk.LIB, fk.LIB, dk.LIB]}.get(
+            "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB]}.get(
         only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
@@ -1438,15 +1452,56 @@ def traffic_setup(enc):
     probes = [p for v in by_cluster.values() for p in v[1:]]
     rng = np.random.default_rng(SEED)
     traffic = [probes[i] for i in rng.permutation(len(probes))[:64]]
-    ce = enc.embed_batch([q for q, _ in cached])
-    pe = enc.embed_batch([q for q, _ in traffic])
+    knobs = similarity_knobs(enc, [q for q, _ in cached], [q for q, _ in traffic])
+    return cached, probes, traffic, knobs
+
+
+def similarity_knobs(enc, cached, probes):
+    """(t_s, t_single, t_combined) from this encoder's similarity quantiles
+    of the ``probes`` texts against the ``cached`` texts: t_s at the 75th
+    percentile of each probe's best score, t_single at the 25th, t_combined
+    at the median sum of the top-k scores above t_single of the probes
+    whose best score is at most t_s."""
+    import numpy as np
+
+    ce = enc.embed_batch(list(cached))
+    pe = enc.embed_batch(list(probes))
     S = np.sort(pe @ ce.T, axis=1)[:, ::-1]
     t_s = float(np.quantile(S[:, 0], 0.75))
     t_single = float(np.quantile(S[:, 0], 0.25))
     below = S[S[:, 0] <= t_s][:, :TOPK]
     sums = np.where(below > t_single, below, 0.0).sum(1)
     t_comb = float(np.quantile(sums[sums > 0], 0.5)) if (sums > 0).any() else 2 * t_s
-    return cached, probes, traffic, (t_s, t_single, t_comb)
+    return t_s, t_single, t_comb
+
+
+def main_path_hierarchy(enc, knobs, cached, dev, l1_cap=L1_CAP, l2_cap=L2_CAP):
+    """The main path's cache, freshly filled: HierarchicalCache(L1
+    GenerativeCache(l1_cap), L2 GenerativeCache(l2_cap)) on one
+    [2, l2_cap, D] kernel-path bank, thresholds ``knobs``, L2 filled to 90%
+    of ``l2_cap``: seeded filler rows, then ``cached``'s (question, answer)
+    pairs through the encoder. Returns the hierarchy and its bank."""
+    import numpy as np
+
+    from repro_torch.core import GenerativeCache, HierarchicalCache
+
+    t_s, t_single, t_comb = knobs
+
+    def level(cap):
+        return GenerativeCache(enc, threshold=t_s, t_single=t_single, t_combined=t_comb,
+                               capacity=cap, max_sources=TOPK, use_pallas=True, device=dev)
+
+    l1, l2 = level(l1_cap), level(l2_cap)
+    n_fill = int(0.9 * l2_cap) - len(cached)
+    filler = np.random.default_rng(SEED + 7).standard_normal((n_fill, enc.dim)).astype(np.float32)
+    l2.insert_batch([f"filler {i}" for i in range(n_fill)],
+                    [f"filler answer {i}" for i in range(n_fill)], vecs=filler)
+    l2.insert_batch([q for q, _ in cached], [a for _, a in cached])  # through the encoder
+    h = HierarchicalCache(l1, l2)
+    bank = h.ensure_bank()
+    if bank is None or tuple(bank.buf.shape) != (2, l2_cap, enc.dim) or not bank.use_pallas:
+        raise AssertionError(f"expected one [2, {l2_cap}, {enc.dim}] kernel-path bank")
+    return h, bank
 
 
 def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profile=False):
@@ -1460,19 +1515,14 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
     traced breakdown of one fused read (``profile_read``). Returns the
     kernels' launches during the traffic (B1, B3 and B4 from the first
     backend's replay, B5 from the second's), and the encoder and probes for
-    ``store_phase``."""
+    ``store_phase``, and the hit and miss p50 of the first backend's
+    replay (``traffic:``'s in-process figures, which the gateway's burst
+    over HTTP is read against)."""
     import numpy as np
     import torch
 
     from repro_torch.configs.contriever import CONTRIEVER_MSMARCO
-    from repro_torch.core import (
-        CacheRequest,
-        ContrieverEncoder,
-        EnhancedClient,
-        GenerativeCache,
-        HierarchicalCache,
-        MockLLM,
-    )
+    from repro_torch.core import CacheRequest, ContrieverEncoder, EnhancedClient, MockLLM
     from repro_torch.core import read_path
     from repro_torch.kernels.similarity_topk import kernel as kern
     from repro_torch.kernels.similarity_topk import ops
@@ -1484,32 +1534,20 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     enc = ContrieverEncoder(cfg, seed=SEED, device=dev)
     n_params = sum(p.numel() for p in enc.parameters())
-    cached, probes, traffic, (t_s, t_single, t_comb) = traffic_setup(enc)
-
-    def level(cap):
-        return GenerativeCache(enc, threshold=t_s, t_single=t_single, t_combined=t_comb,
-                               capacity=cap, max_sources=TOPK, use_pallas=True, device=dev)
+    cached, probes, traffic, knobs = traffic_setup(enc)
+    t_s, t_single, t_comb = knobs
 
     def replay(llm):
         """A freshly filled hierarchy serves the traffic as one burst, with
         ``llm`` answering the misses. Counts run from 0 over the burst."""
         t0 = time.perf_counter()
-        l1, l2 = level(l1_cap), level(l2_cap)
-        n_fill = int(0.9 * l2_cap) - len(cached)
-        filler = np.random.default_rng(SEED + 7).standard_normal((n_fill, dim)).astype(np.float32)
-        l2.insert_batch([f"filler {i}" for i in range(n_fill)],
-                        [f"filler answer {i}" for i in range(n_fill)], vecs=filler)
-        l2.insert_batch([q for q, _ in cached], [a for _, a in cached])  # through the encoder
-        h = HierarchicalCache(l1, l2)
-        client = EnhancedClient(cache=l1, hierarchy=h)
+        h, bank = main_path_hierarchy(enc, knobs, cached, dev, l1_cap, l2_cap)
+        client = EnhancedClient(cache=h.l1, hierarchy=h)
         client.register_backend(llm)
         service = CacheService(client, max_batch=8, max_wait_ms=2.0)
-        bank = h._shared_bank
-        if bank is None or tuple(bank.buf.shape) != (2, l2_cap, dim) or not bank.use_pallas:
-            raise AssertionError(f"expected one [2, {l2_cap}, {dim}] kernel-path bank")
         sync()
         print(f"fill: encoder params={n_params} bank={tuple(bank.buf.shape)} "
-              f"bank_MB={bank.buf.numel() * 4 / 1e6:.1f} L2_live={len(l2.store)} "
+              f"bank_MB={bank.buf.numel() * 4 / 1e6:.1f} L2_live={len(h.l2.store)} "
               f"t_s={t_s:.4f} t_single={t_single:.4f} t_combined={t_comb:.4f} "
               f"setup_s={time.perf_counter() - t0:.1f}")
         # warm the service (first CUDA/cuBLAS calls), then count from zero
@@ -1562,17 +1600,18 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
               f"[{gpu}]")
         if launches != expect or reads == 0 or dispatches != reads:
             raise AssertionError(f"kernel launches {launches} != {expect} (fused reads {reads})")
-        return h, bank, launches
+        return h, bank, launches, {"hit": p50(hits + gen), "miss": p50(miss)}
 
     # the same burst with the stand-in LLM (20 ms of sleep) first, so the
     # engines' effect on hit latency is read within one run; then the main
     # path proper, each engine answering the misses in turn
     replay(MockLLM("mock-llm", latency_s=0.02))
-    counts = []
+    counts, p50s = [], []
     for make in backends:
         llm = make()
-        h, bank, replay_launches = replay(llm)
+        h, bank, replay_launches, replay_p50 = replay(llm)
         counts.append(replay_launches)
+        p50s.append(replay_p50)
         del llm
         if on_card:
             free_card()
@@ -1630,7 +1669,7 @@ def main_path(dev, gpu, backends, cfg=None, l1_cap=L1_CAP, l2_cap=L2_CAP, profil
         thr_b = np.asarray([[c.effective_threshold(t, None) for c in levels] for t in tb])
         profile_read(lambda: read_path.fused_read(bank, enc, tb, thr_b, specs),
                      lambda: enc.fused_forward()[0](tb), gpu)
-    return launches, enc, [q for q, _ in traffic]
+    return launches, enc, [q for q, _ in traffic], p50s[0]
 
 
 SHARDS = 8  # positions of the sharded L2 (all on the one card)
@@ -1941,6 +1980,373 @@ def sharded_phase(dev, gpu, enc, engine, n_shards=SHARDS, l1_cap=L1_CAP, l2_cap=
     free_card()
 
 
+GATEWAY_PACED = dict(n_requests=256, n_users=24, max_tokens=NEW_TOKENS, seed=0)  # the rest: defaults
+
+
+def gateway_stack(enc, knobs, cached, dev, engine, l1_cap=L1_CAP, l2_cap=L2_CAP):
+    """The main path's stack, freshly filled (``main_path_hierarchy``):
+    EnhancedClient over the hierarchy, the qwen1.5-0.5b ``engine`` behind
+    ModelBackend answering the misses, CacheService(max_batch=8,
+    max_wait_ms=2.0) in front. The backend adds up the wall time of its
+    engine passes (``busy_s``), so that a replay can say how long the
+    engine took per decode step while the gateway and its clients ran
+    beside it. Returns (service, hierarchy, bank)."""
+    from repro_torch.core import EnhancedClient
+    from repro_torch.serving.engine import ModelBackend
+    from repro_torch.serving.service import CacheService
+
+    class TimedBackend(ModelBackend):
+        busy_s = 0.0
+
+        def generate_batch(self, prompts, max_tokens=32, temperature=0.0, deadlines=None):
+            t = time.perf_counter()
+            try:
+                return super().generate_batch(prompts, max_tokens, temperature, deadlines)
+            finally:
+                self.busy_s += time.perf_counter() - t
+
+    h, bank = main_path_hierarchy(enc, knobs, cached, dev, l1_cap, l2_cap)
+    client = EnhancedClient(cache=h.l1, hierarchy=h)
+    client.register_backend(TimedBackend(LLM, engine))
+    return CacheService(client, max_batch=8, max_wait_ms=2.0), h, bank
+
+
+def path_counter(service, bank, engine, on_card):
+    """Set B1's and the engine kernels' counts to 0 now; the returned
+    function reads them and says whether B1 launched once per fused read
+    of ``bank`` and B3/B4 as ``expected_launches`` says for the engine's
+    prefills and decode steps since then. It returns the figures (with
+    the engine's busy seconds and its wall ms per decode step, prefills
+    included) and the mismatch (None when the counts hold); call it with
+    the engine idle."""
+    import torch
+
+    from repro_torch.kernels.similarity_topk import kernel as kern
+
+    if on_card:
+        torch.cuda.synchronize()
+    kern.reset_launches()
+    reset_engine_launches()
+    backend = next(iter(service.client.backends.values()))
+    d0, m0, b0 = bank.dispatches, dict(engine.metrics), backend.busy_s
+
+    def read(label):
+        if on_card:
+            torch.cuda.synchronize()
+        launches = {"similarity_topk_lanes": kern.launches, **engine_launches()}
+        reads = bank.dispatches - d0
+        prefills = (engine.metrics["prefill_tokens"] - m0["prefill_tokens"]) // PROMPT
+        steps = engine.metrics["decode_steps"] - m0["decode_steps"]
+        expect = {"similarity_topk_lanes": reads if on_card else 0,
+                  **expected_launches(engine.cfg, prefills, steps, on_card)}
+        bad = None
+        if launches != expect or reads == 0:
+            bad = (f"{label}: kernel launches {launches} != {expect} "
+                   f"(fused reads {reads}, prefills {prefills}, steps {steps})")
+        busy = backend.busy_s - b0
+        return {"fused_reads": reads, "engine_prefills": prefills,
+                "engine_decode_steps": steps, "engine_busy_s": f"{busy:.3f}",
+                "engine_ms_per_step": f"{busy * 1e3 / max(steps, 1):.3f}",
+                "launches": launches}, bad
+
+    return read
+
+
+def settle(service):
+    """Join the service's scheduler threads without a time limit, so that
+    nothing is left running on the engine (``CacheService.close`` waits 10 s
+    and returns; a drain that takes longer still runs, and shows as
+    dropped requests)."""
+    for sched in (service._lookup_sched, service._miss_sched):
+        if sched is not None:
+            sched.close(timeout=None)
+
+
+def _figures(d):
+    return " ".join(f"{k}={v}" for k, v in d.items())
+
+
+def wire_parity(dev, gpu, enc, engine, setup, l1_cap, l2_cap):
+    """8 requests (4 of the cached questions, 4 paraphrases nobody asked;
+    chat and completions, streamed and not), one at a time, over HTTP to
+    one filled stack and through ``service.submit`` to an identically
+    filled twin, each request built by the gateway's own parser. The
+    X-Cache class, level and answer text must be identical, and each
+    streamed reply, reassembled, byte-identical to the twin's answer.
+    Each request alone also gives the unloaded wire's cost: the HTTP
+    client's wall ms against the twin's service latency."""
+    from repro_torch.gateway import GatewayClient, serve_in_thread
+    from repro_torch.gateway.protocol import parse_chat_request, parse_completion_request
+
+    cached, probes, traffic, knobs = setup
+    unseen = [p for p in probes if p not in traffic]
+    texts = [q for q, _ in cached[:4]] + [q for q, _ in unseen[:4]]
+    # (text, chat, stream): each of seen/unseen x chat/completions x streamed/not
+    plan = [(texts[i + 4 * u], c, st) for i, (c, st) in
+            enumerate([(True, False), (False, False), (True, True), (False, True)])
+            for u in (0, 1)]
+    service, _, _ = gateway_stack(enc, knobs, cached, dev, engine, l1_cap, l2_cap)
+    twin, _, _ = gateway_stack(enc, knobs, cached, dev, engine, l1_cap, l2_cap)
+    runner = serve_in_thread(service, own_service=True)
+    rows = []
+    try:
+        with GatewayClient("127.0.0.1", runner.gateway.port, timeout=300.0) as http:
+            for text, chat, stream in plan:
+                body = {"max_tokens": NEW_TOKENS, "stream": stream,
+                        **({"messages": [{"role": "user", "content": text}]} if chat
+                           else {"prompt": text})}
+                t = time.perf_counter()
+                reply = http.request("POST", "/v1/chat/completions" if chat else "/v1/completions",
+                                     body)
+                wall_ms = (time.perf_counter() - t) * 1e3
+                want = twin.submit((parse_chat_request if chat else parse_completion_request)(
+                    dict(body))).result(timeout=300)
+                rows.append((reply, want, stream, wall_ms))
+    finally:
+        clean = runner.stop()
+        twin.close()
+    same_class = all(r.headers.get("x-cache") == w.cache_status for r, w, _, _ in rows)
+    same_level = all(r.headers.get("x-cache-level") == w.resolved_level for r, w, _, _ in rows)
+    same_text = all(r.status == 200 and r.text == w.text and w.text for r, w, _, _ in rows)
+    streamed = [r for r, _, st, _ in rows if st]
+    stream_ok = all(r.done and r.headers["content-type"].startswith("text/event-stream")
+                    for r in streamed)
+    unloaded = " ".join(
+        f"{r.headers.get('x-cache')}{'/sse' if st else ''}:{ms:.3f}-{w.latency_s * 1e3:.3f}"
+        for r, w, st, ms in rows)
+    print(f"gateway: wire parity requests={len(rows)} (4 cached, 4 unseen; chat and "
+          f"completions, {len(streamed)} streamed) classes={[r.headers.get('x-cache') for r, *_ in rows]} "
+          f"levels={[r.headers.get('x-cache-level') for r, *_ in rows]} "
+          f"class_identical={same_class} level_identical={same_level} text_identical={same_text} "
+          f"streamed_byte_identical={stream_ok and same_text} drain_clean={clean} "
+          f"unloaded_http_ms-twin_service_ms {unloaded} [{gpu}]")
+    if not (same_class and same_level and same_text and stream_ok and clean):
+        for r, w, st, _ in rows:
+            print(f"gateway:   http status={r.status} x-cache={r.headers.get('x-cache')} "
+                  f"level={r.headers.get('x-cache-level')} text={r.text!r:.60} | twin "
+                  f"{w.cache_status} {w.resolved_level} {w.text!r:.60} stream={st}")
+        raise AssertionError("the gateway's replies differ from the in-process service's")
+
+
+def gateway_burst(dev, gpu, enc, engine, setup, inproc_p50, l1_cap, l2_cap):
+    """``traffic:``'s 64-request burst over HTTP (every other request
+    streamed), one client connection per request, all sent at once; the
+    same counts and gate as ``traffic:``, and the wire's cost per class:
+    the HTTP p50 (client clock, to the last byte) minus ``traffic:``'s
+    in-process p50 (``inproc_p50``, the service's own clock; a run without
+    ``traffic:`` passes None and prints the HTTP side alone)."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.gateway import GatewayClient, serve_in_thread
+
+    cached, _, traffic, knobs = setup
+    on_card = dev.type == "cuda"
+    service, h, bank = gateway_stack(enc, knobs, cached, dev, engine, l1_cap, l2_cap)
+    runner = serve_in_thread(service, own_service=True)
+    port = runner.gateway.port
+
+    def one(i, text):
+        with GatewayClient("127.0.0.1", port, timeout=600.0) as c:
+            t = time.perf_counter()
+            reply = c.completion(text, max_tokens=NEW_TOKENS, stream=i % 2 == 1)
+            return reply, time.perf_counter() - t
+
+    try:
+        one(0, "warm-up question about nothing")
+        count = path_counter(service, bank, engine, on_card)
+        with ThreadPoolExecutor(len(traffic)) as pool:
+            results = list(pool.map(one, range(len(traffic)), [q for q, _ in traffic]))
+    finally:
+        clean = runner.stop()
+    settle(service)
+    figures, mismatch = count("gateway: burst")
+    bad = [r.status for r, _ in results if r.status != 200]
+    by, svc, split = {}, {}, {}
+    for i, (r, lat) in enumerate(results):
+        cls = "miss" if r.headers.get("x-cache") == "miss" else "hit"  # hit: semantic or generative
+        by.setdefault(r.headers.get("x-cache"), []).append(lat * 1e3)
+        svc.setdefault(cls, []).append(float(r.headers.get("x-service-latency-ms", "nan")))
+        split.setdefault((cls, "streamed" if i % 2 else "plain"), []).append(lat * 1e3)
+    hits, miss = by.get("hit", []) + by.get("generative", []), by.get("miss", [])
+    if bad or not (hits and miss) or not clean or not all(r.text for r, _ in results):
+        raise AssertionError(f"gateway burst: statuses {bad}, classes "
+                             f"{ {k: len(v) for k, v in by.items()} }, drain_clean={clean}")
+    hit_p50, miss_p50 = statistics.median(hits), statistics.median(miss)
+    ratio = miss_p50 / hit_p50
+    print(f"gateway: burst requests={len(results)} streamed={len(results) // 2} "
+          f"hits={len(by.get('hit', []))} generative_hits={len(by.get('generative', []))} "
+          f"misses={len(miss)} hit_p50_ms={hit_p50:.3f} miss_p50_ms={miss_p50:.3f} "
+          f"miss_over_hit_p50={ratio:.2f} gate_5x={'pass' if ratio >= 5 else 'FAIL'} "
+          f"{_figures(figures)} drain_clean={clean} [{gpu}]")
+    cost = ("no traffic: line in this run" if inproc_p50 is None else
+            f"hit_ms={hit_p50 - inproc_p50['hit']:.3f} miss_ms={miss_p50 - inproc_p50['miss']:.3f} "
+            f"(in-process hit_p50_ms={inproc_p50['hit']:.3f} "
+            f"miss_p50_ms={inproc_p50['miss']:.3f})")
+    print(f"gateway: wire cost per class (HTTP p50 - traffic: in-process p50) {cost}; "
+          f"over HTTP, the service's own X-Service-Latency-Ms p50 hit="
+          f"{statistics.median(svc['hit']):.3f} miss={statistics.median(svc['miss']):.3f}; "
+          + " ".join(f"{c}_{k}_p50_ms={statistics.median(v):.3f}"
+                     for (c, k), v in sorted(split.items())) + f" [{gpu}]")
+    if mismatch:
+        raise AssertionError(mismatch)
+
+
+def gateway_paced(dev, gpu, enc, engine, setup, l1_cap, l2_cap):
+    """The traffic harness's paced workload (``GATEWAY_PACED``; bursty
+    per-user arrivals, Zipf 1.1 over its 64-query corpus, paraphrases,
+    combines and one-off questions, deadlines, TTLs, half streamed),
+    replayed once in process (``run_inprocess``, every future awaited
+    before the service drains: the miss backlog outlasts
+    ``CacheService.close``'s 10 s limit) and once over HTTP (``run_http``,
+    one keep-alive connection per user), each on a freshly
+    filled stack that has already answered the corpus (``prewarm``), with
+    thresholds from this encoder's similarity quantiles of the workload
+    against the corpus. Raises on an error, a 503, a dirty drain or a
+    dropped request; 504s are the workload's own deadlines."""
+    from dataclasses import asdict
+
+    from repro_torch.core import CacheRequest
+    from repro_torch.gateway import serve_in_thread
+    from repro_torch.gateway.traffic import (
+        CLASSES,
+        TrafficConfig,
+        generate_workload,
+        make_corpus,
+        prewarm,
+        run_http,
+        run_inprocess,
+    )
+
+    cached = setup[0]
+    on_card = dev.type == "cuda"
+    cfg = TrafficConfig(**GATEWAY_PACED)
+    changed = {k: v for k, v in asdict(cfg).items() if v != asdict(TrafficConfig())[k]}
+    workload = generate_workload(cfg)
+    corpus = make_corpus(cfg)
+    knobs = similarity_knobs(enc, corpus, [tr.prompt for tr in workload])
+
+    def replay(mode):
+        service, h, bank = gateway_stack(enc, knobs, cached, dev, engine, l1_cap, l2_cap)
+        prewarm(h.l2, corpus, churn=0)  # the corpus has been answered before
+        service.submit(CacheRequest("warm-up question about nothing",
+                                    max_tokens=NEW_TOKENS)).result(timeout=300)
+        count = path_counter(service, bank, engine, on_card)
+        if mode == "inprocess":
+            # every future awaited (60 s each), then the drain without a time
+            # limit: CacheService.close's 10 s is shorter than this backlog
+            rep = run_inprocess(service, workload, close_service=False)
+            service.close(timeout=None)
+        else:
+            runner = serve_in_thread(service, own_service=True)
+            try:
+                rep = run_http("127.0.0.1", runner.gateway.port, workload)
+            finally:
+                rep.drain_clean = runner.stop() and rep.drain_clean
+        t0 = time.perf_counter()
+        settle(service)
+        return rep.to_dict(), time.perf_counter() - t0, *count(f"gateway: paced {mode}")
+
+    for mode in ("inprocess", "http"):
+        d, settle_s, figures, mismatch = replay(mode)
+        free_card()
+        lat = " ".join(f"{c}=n{v['n']}/p50 {v['p50']:.3f}/p95 {v['p95']:.3f}/p99 {v['p99']:.3f}"
+                       for c, v in d["latency_ms"].items() if c in CLASSES and v["n"])
+        print(f"gateway: paced mode={mode} config={changed} requests={d['n_requests']} "
+              f"span_s={workload[-1].t:.3f} wall_s={d['wall_s']:.3f} "
+              f"requests_per_s={d['throughput_rps']:.1f} t_s={knobs[0]:.4f} "
+              f"t_single={knobs[1]:.4f} t_combined={knobs[2]:.4f} latency_ms {lat} "
+              f"shed={d['shed']} expired={d['expired']} errors={d['errors']} "
+              f"backend_unavailable={d['backend_unavailable']} "
+              f"dropped_at_drain={d['dropped_at_drain']} drain_clean={d['drain_clean']} "
+              f"settle_s={settle_s:.3f} {_figures(figures)} [{gpu}]")
+        if mismatch:
+            raise AssertionError(mismatch)
+        if d["errors"] or d["backend_unavailable"] or d["dropped_at_drain"] or not d["drain_clean"]:
+            raise AssertionError(f"gateway paced {mode}: errors={d['errors']} "
+                                 f"503={d['backend_unavailable']} dropped={d['dropped_at_drain']} "
+                                 f"drain_clean={d['drain_clean']}")
+
+
+SERVE_RUNS = (["--requests", "8"], ["--requests", "8", "--coalesce"],
+              ["--requests", "8", "--shards", "8"])  # the reference's smoke defaults
+
+
+def serve_lines(dev, gpu):
+    """``repro_torch.launch.serve.main`` as a user runs it (its smoke-width
+    engine and n-gram cache, on the card), at each of ``SERVE_RUNS``:
+    the HIT/MISS sequence, the client's counts, the mesh positions
+    ``--shards 8`` got, and the kernels' launches, B3/B4 exactly as
+    ``expected_launches`` says for the engine's printed metrics."""
+    import ast
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.similarity_topk import kernel as kern
+    from repro_torch.kernels.similarity_topk import ops
+    from repro_torch.launch import serve
+
+    on_card = dev.type == "cuda"
+    cfg = get_config(LLM, smoke=True)
+    for argv in SERVE_RUNS:
+        argv = list(argv) + ([] if on_card else ["--device", "cpu"])
+        kern.reset_launches()
+        ops.reset_single_store_launches()
+        reset_engine_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        tags = re.findall(r"^\[\s*\d+\] (\w+)", out, re.M)
+        client = re.search(r"^requests=(\d+) hits=(\d+) hit_rate=\S+ llm_calls=(\d+)", out, re.M)
+        metrics = ast.literal_eval(re.search(r"^engine: (\{.*\})$", out, re.M).group(1))
+        svc = re.search(r"^service: (.*)$", out, re.M)
+        mesh = re.search(r"^mesh: (\d+) positions", out, re.M)
+        launches = {"similarity_topk_lanes": kern.launches,
+                    "similarity_topk": ops.single_store_launches, **engine_launches()}
+        prefills, steps = metrics["prefill_tokens"] // PROMPT, metrics["decode_steps"]
+        print(f"serve: {' '.join(argv)} sequence={' '.join(tags)} requests={client.group(1)} "
+              f"hits={client.group(2)} llm_calls={client.group(3)} "
+              + (f"service: {svc.group(1)} " if svc else "")
+              + (f"mesh_positions={mesh.group(1)} " if mesh else "")
+              + f"engine={metrics} launches={launches} wall_s={wall:.3f} [{gpu}]")
+        want = expected_launches(cfg, prefills, steps, on_card)
+        if len(tags) != 8 or int(client.group(1)) != 8 or engine_launches() != want:
+            raise AssertionError(f"serve {argv}: {len(tags)} requests, launches "
+                                 f"{engine_launches()} != {want}")
+        # a hit was found by a search of a non-empty store, which launches B1
+        # (and B2 at each mesh position); an empty store is not searched
+        if on_card and int(client.group(2)) and (
+                launches["similarity_topk_lanes"] == 0
+                or ("--shards" in argv and launches["similarity_topk"] == 0)):
+            raise AssertionError(f"serve {argv}: the cache hit without its kernel: {launches}")
+
+
+def gateway_phase(dev, gpu, enc, engine, inproc_p50=None, l1_cap=L1_CAP, l2_cap=L2_CAP):
+    """The HTTP gateway over the main path (``gateway:`` lines): wire
+    parity against the in-process service, ``traffic:``'s burst over HTTP
+    with the wire's cost per class (``inproc_p50``: the main path's
+    qwen1.5 replay's hit and miss p50), the traffic harness's paced
+    workload in process and over HTTP, then the ``serve:`` lines. Smaller
+    caps and a CPU device rehearse it (no launch is counted there)."""
+    t0 = time.perf_counter()
+    print(f"gateway: {LLM} engine behind ModelBackend, Python switch interval "
+          f"{sys.getswitchinterval() * 1e3:g} ms, clients in this process [{gpu}]")
+    setup = traffic_setup(enc)
+    wire_parity(dev, gpu, enc, engine, setup, l1_cap, l2_cap)
+    free_card()
+    gateway_burst(dev, gpu, enc, engine, setup, inproc_p50, l1_cap, l2_cap)
+    free_card()
+    gateway_paced(dev, gpu, enc, engine, setup, l1_cap, l2_cap)
+    serve_lines(dev, gpu)
+    free_card()
+    print(f"gateway: phase wall_s={time.perf_counter() - t0:.1f} [{gpu}]")
+
+
 def profile_read(read, prepare, gpu, reads=10):
     """Where one fused read's time goes at the service's batch of 8:
     device time per kernel from a torch.profiler trace, the device's busy
@@ -2233,6 +2639,9 @@ def main() -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="only the sharded read path: B1/B2 and B3/B4 built, the sharded: "
                          "lines (checks, read p50, profile, the qwen1.5-0.5b replay), then stop")
+    ap.add_argument("--gateway-only", action="store_true",
+                    help="only the HTTP gateway: B1 and B3/B4 built, the encoder and the "
+                         "qwen1.5-0.5b engine, the gateway: and serve: lines, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -2258,8 +2667,9 @@ def main() -> int:
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
     build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
-              else "ssd" if args.ssd_only else "sharded" if args.sharded_only else None)
-    if args.sharded_only:
+              else "ssd" if args.ssd_only else "sharded" if args.sharded_only
+              else "gateway" if args.gateway_only else None)
+    if args.sharded_only or args.gateway_only:
         from repro_torch.configs import get_config
         from repro_torch.configs.contriever import CONTRIEVER_MSMARCO
         from repro_torch.core import ContrieverEncoder
@@ -2269,6 +2679,10 @@ def main() -> int:
         engine = ServingEngine(get_config(LLM), max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
                                seed=SEED, device=dev)
         engine.generate([list(range(1, 9))], max_new_tokens=2)  # warm-up
+        if args.gateway_only:
+            gateway_phase(dev, gpu, enc, engine)
+            print(f"gateway-only: done [{gpu}]")
+            return 0
         sharded_phase(dev, gpu, enc, engine)
         print(f"sharded-only: done [{gpu}]")
         return 0
@@ -2353,13 +2767,14 @@ def main() -> int:
     # built (with its engine: lines) when its replay starts
     backends = [lambda: ModelBackend(LLM, engine), lambda: ModelBackend(SSM_LLM, ssm_engine)]
     backends += [lambda n=n: arch_backend(dev, gpu, n) for n in TRAFFIC_ARCHS]
-    launches, enc, queries = main_path(dev, gpu, backends, profile=args.profile)
+    launches, enc, queries, inproc_p50 = main_path(dev, gpu, backends, profile=args.profile)
     del backends
     torch.cuda.empty_cache()
     launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
-    # the sharded read path, with the qwen engine behind its replay, before
-    # the MoE phases' host copies
+    # the sharded read path, with the qwen engine behind its replay, then the
+    # HTTP gateway over the main path, before the MoE phases' host copies
     sharded_phase(dev, gpu, enc, engine)
+    gateway_phase(dev, gpu, enc, engine, inproc_p50)
     del engine, ssm_engine, enc
     free_card()
     arch_rest(dev, gpu)

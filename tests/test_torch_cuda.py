@@ -817,3 +817,45 @@ def test_sharded_read_on_the_card_matches_the_cpu(route, metric, dev, monkeypatc
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     assert (dk.winner < 2).any() and dk.hit.shape == (len(dk.winner), 2)
+
+
+def test_gateway_serves_a_miss_then_a_hit_through_the_kernel(dev):
+    """The port's HTTP gateway over a small kernel-path stack on the card
+    (an L1 and an L2 GenerativeCache on one [2, cap, D] bank, MockLLM
+    behind): a miss, then the same prompt as a hit, streamed and not; B1
+    launches once per fused read of the bank."""
+    import repro_torch.core as T
+    from repro_torch.gateway import GatewayClient, serve_in_thread
+    from repro_torch.serving.service import CacheService
+
+    emb = T.NgramHashEmbedder()
+
+    def level(cap):
+        return T.GenerativeCache(emb, threshold=0.8, t_single=0.45, t_combined=1.0,
+                                 capacity=cap, use_pallas=True, device=dev)
+
+    l1, l2 = level(64), level(256)
+    l2.insert_batch([f"filler question {i}" for i in range(100)],
+                    [f"filler answer {i}" for i in range(100)])
+    h = T.HierarchicalCache(l1, l2)
+    bank = h.ensure_bank()
+    client = T.EnhancedClient(cache=l1, hierarchy=h)
+    client.register_backend(T.MockLLM("mock-llm", latency_s=0.0))
+    runner = serve_in_thread(CacheService(client, max_batch=8, max_wait_ms=1.0),
+                             own_service=True)
+    try:
+        with GatewayClient("127.0.0.1", runner.gateway.port) as http:
+            tk.reset_launches()
+            reads = bank.dispatches
+            replies = [http.chat("what does the gateway do on the card"),
+                       http.chat("what does the gateway do on the card"),
+                       http.chat("what does the gateway do on the card", stream=True)]
+            torch.cuda.synchronize()
+            reads = bank.dispatches - reads
+            launches = tk.launches
+    finally:
+        assert runner.stop()
+    assert [r.status for r in replies] == [200] * 3
+    assert [r.headers["x-cache"] for r in replies] == ["miss", "hit", "hit"]
+    assert replies[0].text == replies[1].text == replies[2].text
+    assert h._shared_bank is bank and reads >= 3 and launches == reads

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or the reference package, importing the
-serving stack leaves ``jax`` out of ``sys.modules``, and every module
+``chip_smoke.py``, nor the port's ``examples/torch_*.py``) imports ``jax``
+or the reference package, importing the serving stack and its gateway
+leaves ``jax`` out of ``sys.modules``, and every module
 imports without ``triton``, ``nvcc`` or a CUDA device (kernels build on
 first use, never at import)."""
 import ast
@@ -37,7 +38,8 @@ def _forbidden(name: str) -> bool:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_reference_import(path):
@@ -49,7 +51,8 @@ def test_serving_stack_import_leaves_jax_out():
     code = (
         "import sys, repro_torch, repro_torch.serving.service, repro_torch.core, "
         "repro_torch.serving.engine, repro_torch.models.ssm, repro_torch.kernels.ssd_scan, "
-        "repro_torch.distributed.sharded_read, repro_torch.launch.mesh; "
+        "repro_torch.distributed.sharded_read, repro_torch.launch.mesh, "
+        "repro_torch.gateway, repro_torch.gateway.traffic, repro_torch.launch.serve; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'repro' not in sys.modules, 'repro imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
@@ -71,8 +74,18 @@ def test_every_module_imports_without_a_build():
     assert "repro_torch.serving.service" in names and len(names) > 25
     assert "repro_torch.models.ssm" in names and "repro_torch.kernels.ssd_scan.kernel" in names
     assert "repro_torch.distributed.sharded_read" in names and "repro_torch.launch.mesh" in names
+    gateway = {f"repro_torch.gateway.{m}" for m in
+               ("protocol", "errors", "http", "client", "app", "traffic")}
+    assert gateway <= set(names) and "repro_torch.launch.serve" in names
     for name in names:
         importlib.import_module(name)
     if not torch.cuda.is_available():
         for kernel in (topk, flash, decode, ssd):
             assert not kernel.LIB.loaded  # nothing was compiled or loaded
+
+
+def test_port_examples_exist_beside_the_reference():
+    ported = {p.name for p in (ROOT / "examples").glob("torch_*.py")}
+    assert ported == {f"torch_{n}.py" for n in (
+        "quickstart", "async_service", "http_gateway", "serve_with_cache",
+        "hierarchical_multipod", "adaptive_tuning")}
