@@ -5,12 +5,13 @@ vision, audio, SSM, hybrid and MoE models).
 
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
-                           | --moe-only | --sharded-only | --gateway-only] [--src DIR]
+                           | --moe-only | --sharded-only | --gateway-only | --train-only]
+                          [--src DIR]
 
-It builds the port's four CUDA libraries from the sources in this checkout
+It builds the port's five CUDA libraries from the sources in this checkout
 (one nvcc each, all at once), holds every kernel against its plain PyTorch
 version on the card, checks the full-width models against their CPU runs,
-and then serves a burst of requests through the port's real entry points:
+serves a burst of requests through the port's real entry points:
 
     CacheService -> EnhancedClient
       -> HierarchicalCache(L1 GenerativeCache 16384, L2 GenerativeCache 131072)
@@ -39,7 +40,9 @@ ModelBackend -> ServingEngine: llama4-scout-17b-a16e (8 of 48 layers, 16
 experts top-1, B4/B3 at H 40 over KH 8) and deepseek-v3-671b (3 dense + 2
 MoE of 61 layers, 256 experts top-8, MLA: prefill through B4 at q/k width
 192 and value width 128, decode absorbed into the latent space in plain
-torch, without B3).
+torch, without B3); and trains qwen1.5-0.5b at full width through
+``repro_torch.launch.train.main`` (bfloat16, AdamW, full remat), its
+attention's gradient through the flash-attention backward kernel.
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 ``build:`` (nvcc seconds per library; B1's stream route and main-path
@@ -99,7 +102,14 @@ over HTTP, per-class p50/p95/p99, sheds, 504s, errors and the drain),
 with ``--coalesce``, then ``--shards 8``: the HIT/MISS sequence, counts,
 mesh positions and launches), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
-``engine: musicgen-large model-level``, then the MoE models' lines, last
+``engine: musicgen-large model-level``, ``train:`` (B4's backward against
+its plain version at six shapes with its ``time:`` lines, SDPA's backward
+the library yardstick; qwen1.5-0.5b at full width, 30 steps of 8 x 512
+tokens through ``launch.train.main``: step p50, tokens/s, the first and
+last loss against ln V, peak memory, B4 and B4-bwd launches checked
+exactly, one step profiled; a 2-layer cut's gradients and one AdamW
+update on the card against the CPU in float32; a checkpoint restart
+against an uninterrupted run), then the MoE models' lines, last
 so that the host copies of their float32 lines come after every
 host-bound line above: ``moe:`` per MoE model and token count (one
 full-width MoE layer in float32, card against CPU: expert flips above a
@@ -123,7 +133,8 @@ llama4's shapes, checked and timed; ``moe:``, ``model:``, ``engine:``,
 and B3/B4 built, the qwen1.5-0.5b engine for the replay),
 ``--gateway-only`` only the ``gateway:`` and ``serve:`` lines (the same
 build and engine; the wire's cost against ``traffic:`` is then not
-printed), and
+printed), ``--train-only`` only the ``train:`` lines (B4 and its
+backward built), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -434,9 +445,9 @@ def kernel_times(kern, dev, gpu):
 
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
-    library's build time. ``only`` = "attention", "topk", "ssd", or
-    "sharded" or "gateway" (B1/B2 and B3/B4) builds those kernels'
-    libraries alone."""
+    library's build time. ``only`` = "attention", "topk", "ssd", "train"
+    (B4 and its backward), or "sharded" or "gateway" (B1/B2 and B3/B4)
+    builds those kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -450,8 +461,9 @@ def build_all(only=None):
         return lib.src.name, time.perf_counter() - t0
 
     libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
-            "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB]}.get(
-        only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB])
+            "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB],
+            "train": [fk.LIB, fk.LIB_BWD]}.get(
+        only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB, fk.LIB_BWD])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         done = list(ex.map(timed, libs))
@@ -2615,6 +2627,274 @@ def arch_rest(dev, gpu):
     free_card()
 
 
+# --- training (A13): B4's backward kernel and the train path ---------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512  # the train: phase's run of launch.train
+TRAIN_LR = 1e-3
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # worst error over max(largest value, 1)
+# B4-bwd check and time shapes: (label, B, S, H, KH, Dh, window, softcap, dtype)
+BWD_CASES = [
+    (f"{LLM} train", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, 0, 0.0, "bfloat16"),
+    ("S=2048", 1, 2048, 16, 16, 64, 0, 0.0, "bfloat16"),
+    ("Dh=128 GQA", 1, 512, 32, 8, 128, 0, 0.0, "bfloat16"),
+    ("window=1024", 1, 2048, 16, 16, 64, 1024, 0.0, "bfloat16"),
+    ("softcap=50", 1, 512, 16, 16, 64, 0, 50.0, "bfloat16"),
+    ("float32", 1, 128, 16, 16, 64, 0, 0.0, "float32"),
+]
+BWD_KERNELS_PER_CALL = 3  # rowsum(dO o), dK/dV, dQ
+
+
+def flash_bwd_bound(B, S, H, KH, Dh, window, dtype):
+    """The card's least time for the attention backward: q, k, v, o, dO and
+    lse read once, dq, dk, dv written once, against the five products of a
+    (query, key) pair a query attends to (QK^T recomputed, dP, dV, dK, dQ:
+    10 Dh FLOP per pair) at the dtype's peak."""
+    import torch
+
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    size = 4 if dtype == torch.float32 else 2
+    nbytes = size * (3 * B * S * H * Dh + 2 * B * S * KH * Dh) + 4 * B * H * S \
+        + size * (B * S * H * Dh + 2 * B * S * KH * Dh)
+    rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    return _bound(nbytes, 10 * B * H * Dh * pairs, rate)
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1.0))
+
+
+def flash_bwd_checks(dev, gpu):
+    """B4's backward kernel against its plain version on the card at
+    ``BWD_CASES``, with each case's kernel, plain and library (SDPA's
+    backward, a yardstick the port never calls) device ms and its bound.
+    Returns (worst abs error, the figures of the phase's own shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    worst, first = 0.0, None
+    for label, B, S, H, KH, Dh, w, cap, dt_name in BWD_CASES:
+        dt = getattr(torch, dt_name)
+        q, do = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(dt) for _ in "qd")
+        k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt) for _ in "kv")
+        opts = dict(window=w, softcap=cap)
+        o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
+        got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
+        want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
+        torch.cuda.synchronize()
+        rel = max(_rel_err(a, b) for a, b in zip(got, want))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        ok = rel <= BWD_TOL[dt_name] and all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"train: check B4-bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} Dh={Dh} "
+              f"window={w} softcap={cap} dq/dk/dv max_abs_err={err:.3e} rel_err={rel:.3e} "
+              f"tol={BWD_TOL[dt_name]} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"B4's backward disagrees with its plain version: {label}")
+        worst = max(worst, err)
+        bound, by = flash_bwd_bound(B, S, H, KH, Dh, w, dt)
+        k_ms = device_ms(lambda: fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts), bound)
+        p_ms = device_ms(lambda: fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts),
+                         bound, iters=3)
+        # the library's backward: SDPA's autograd graph, run again and again
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        if w:
+            pos = torch.arange(S, device=dev)
+            sdpa = dict(attn_mask=(pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w))
+        else:
+            sdpa = dict(is_causal=True)
+        l_ms = None
+        if not cap:  # SDPA has no softcap
+            ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KH != H, **sdpa)
+            dot = do.transpose(1, 2)
+            l_ms = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                         retain_graph=True), bound)
+        lib = "n/a (no softcap)" if l_ms is None else f"{l_ms:.4f}"
+        print(f"time: flash_attention_bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} Dh={Dh} "
+              f"window={w} softcap={cap} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={lib} bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.4f} "
+              f"kernels_per_call={BWD_KERNELS_PER_CALL} [{gpu}]")
+        if first is None:
+            first = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+        del q, k, v, o, lse, do, got, want, qt, kt, vt
+        torch.cuda.empty_cache()
+    return worst, first
+
+
+def profile_train_step(step_fn, state, batch, gpu):
+    """One train step under torch.profiler: its device ms (the CUDA
+    kernels' summed durations), kernels launched, the device's busy share
+    of the step's wall time, and the five kernel groups that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    groups = {}
+    for e in kernels:
+        name = e.name
+        key = ("flash_bwd (B4-bwd)" if "flash_bwd" in name else
+               "flash_fwd (B4)" if "flash_fwd" in name else
+               "gemm" if ("gemm" in name.lower() or "sm90" in name or "cutlass" in name) else
+               name.split("<")[0].split("(")[0][:48])
+        groups[key] = groups.get(key, 0.0) + e.device_time_total / 1e3
+    top = sorted(groups.items(), key=lambda kv: -kv[1])[:5]
+    print(f"train: profile one step device_ms={dev_ms:.2f} wall_ms={wall:.2f} "
+          f"busy={dev_ms / wall:.3f} kernels={len(kernels)} top: "
+          + "; ".join(f"{k} {v:.2f} ms" for k, v in top) + f" [{gpu}]")
+    if dev_ms <= 0 or not kernels:
+        raise AssertionError("the profiled train step shows no device activity")
+    return state
+
+
+def train_grads_vs_cpu(dev, gpu):
+    """qwen1.5-0.5b cut to 2 layers at full width, float32 with TF32 off
+    (``full_fp32``), B = 1, S = 128: every gradient leaf and one AdamW
+    update on the card against the same on the CPU, from the same weights
+    and batch."""
+    import torch
+
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw_update, init_opt_state, tree_leaves
+    from repro_torch.training.train_loop import _microbatch_grads, opt_config
+
+    cfg = cut_config(LLM, layers=2, dtype="float32")
+    params = T.init_params(cfg, SEED, device="cpu")
+    batch = {"tokens": torch.from_numpy(ShardedLoader(cfg.vocab_size, 1, 128, seed=SEED)
+                                        ._batch_at(0))}
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = _tree_to(params, torch.device(where))
+        b = {k: v.to(where) for k, v in batch.items()}
+        grads, loss, _ = _microbatch_grads(cfg, p, b, torch.float32)
+        new_p, _, m = adamw_update(p, grads, init_opt_state(p, opt_config(cfg)),
+                                   torch.tensor(0, dtype=torch.int32), 1e-3, opt_config(cfg))
+        out[where] = ([x.detach().cpu() for x in tree_leaves(grads)],
+                      [x.cpu() for x in tree_leaves(new_p)], float(loss), float(m["grad_norm"]))
+        del p, grads, new_p
+    g_err = max(_rel_err(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    p_err = max(_rel_err(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    l_err = abs(out["cuda"][2] - out["cpu"][2])
+    ok = g_err <= MODEL_TOL and p_err <= MODEL_TOL and l_err <= MODEL_TOL
+    print(f"train: card-vs-cpu {cut_text(cfg)} float32 (TF32 off) B=1 S=128 "
+          f"loss card={out['cuda'][2]:.6f} cpu={out['cpu'][2]:.6f} "
+          f"grad_norm card={out['cuda'][3]:.6f} cpu={out['cpu'][3]:.6f} "
+          f"worst grad rel_err={g_err:.3e} over {len(out['cpu'][0])} leaves, "
+          f"one AdamW update worst rel_err={p_err:.3e} tol={MODEL_TOL} -> "
+          f"{'ok' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("training gradients differ between the card and the CPU")
+
+
+def train_resume(gpu):
+    """Checkpoint restart on the card at the 2-layer cut (bfloat16): 6 steps
+    in one run against 3 steps, a checkpoint, a restore and 3 more; the
+    last losses agree within the reference test's rtol 1e-3."""
+    import shutil
+
+    from repro_torch.launch.train import main as train_main
+
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    args = ["--arch", LLM, "--layers", "2", "--global-batch", "4", "--seq-len", "128",
+            "--lr", str(TRAIN_LR), "--warmup", "2", "--total-steps", "6", "--ckpt-dir", str(ck),
+            "--log-every", "100"]
+    try:
+        full = train_main(args + ["--steps", "6", "--ckpt-every", "100"])
+        shutil.rmtree(ck)
+        train_main(args + ["--steps", "3", "--ckpt-every", "3"])
+        resumed = train_main(args + ["--steps", "6", "--ckpt-every", "100"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    diff = abs(resumed[-1] - full[-1])
+    ok = len(resumed) == 3 and diff <= 1e-3 * abs(full[-1])
+    print(f"train: resume {LLM} 2 layers bf16 B=4 S=128: 6 steps last loss {full[-1]:.6f}, "
+          f"3 + checkpoint + 3 last loss {resumed[-1]:.6f} diff={diff:.3e} rtol=1e-3 -> "
+          f"{'ok' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("the restored run does not resume identically")
+
+
+def train_phase(dev, gpu):
+    """The training slice on the card: B4-bwd against its plain version and
+    timed; qwen1.5-0.5b at full width (bfloat16, AdamW, loss_chunk 512,
+    full remat) for ``TRAIN_STEPS`` steps through
+    ``repro_torch.launch.train.main`` on ``ShardedLoader`` at global batch
+    8 x 512, with B4's forward and backward launches counted over the run
+    and checked exactly (per step: 24 forward + 24 recomputed forward, 24
+    backward calls of 3 kernels), one step profiled; the card against the
+    CPU at 2 layers; a checkpoint restart. Returns (B4-bwd launches on the
+    train run, worst error, its figures at the train shape)."""
+    import math
+
+    import torch
+
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    err, figures = flash_bwd_checks(dev, gpu)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    fk.reset_launches()
+    losses = train_main(["--arch", LLM, "--steps", str(TRAIN_STEPS), "--global-batch",
+                         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                         "--seed", str(SEED), "--log-every", "10"], report=report)
+    fwd, bwd = fk.launches, fk.bwd_launches
+    cfg = report["cfg"]
+    n_layers = cfg.num_layers
+    want_fwd = 2 * n_layers * TRAIN_STEPS if cfg.remat else n_layers * TRAIN_STEPS
+    want_bwd = BWD_KERNELS_PER_CALL * n_layers * TRAIN_STEPS
+    steady = report["step_s"][2:]
+    p50 = statistics.median(steady) * 1e3
+    uniform = math.log(cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: {LLM} full width ({n_layers} x {cfg.d_model}, vocab {cfg.vocab_size}) "
+          f"{cfg.dtype} AdamW loss_chunk={cfg.loss_chunk} remat={cfg.remat_policy} "
+          f"{TRAIN_STEPS} steps B={TRAIN_BATCH} S={TRAIN_SEQ} lr={TRAIN_LR}: step p50 "
+          f"{p50:.2f} ms (first {report['step_s'][0] * 1e3:.1f} ms) "
+          f"tokens/s={TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3):.0f} loss first={losses[0]:.4f} "
+          f"last={losses[-1]:.4f} ln V={uniform:.4f} max_memory_allocated={peak:.2f} GiB "
+          f"[{gpu}]")
+    print(f"train: launches over {TRAIN_STEPS} steps flash_attention={fwd} (want {want_fwd}: "
+          f"{n_layers} + {n_layers} recomputed a step) flash_attention_bwd={bwd} (want "
+          f"{want_bwd}: {n_layers} calls x {BWD_KERNELS_PER_CALL} kernels a step)")
+    if fwd != want_fwd or bwd != want_bwd:
+        raise AssertionError("the train run did not launch B4 and its backward as counted")
+    # the stream's bigrams cannot be learned from 123k tokens at V = 151936, and
+    # random unit-variance logits start ~0.5 above ln V: 30 steps show the loss
+    # falling, not reaching below ln V (PERF.md, Findings)
+    print(f"train: loss fell {losses[0] - losses[-1]:.4f} (min {min(losses):.4f}); "
+          f"last below ln V: {'yes' if losses[-1] < uniform else 'no'}")
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=3, total_steps=TRAIN_STEPS)
+    batch = next(ShardedLoader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1))
+    profile_train_step(step_fn, report.pop("state"), batch, gpu)
+    report.clear()
+    free_card()
+    train_grads_vs_cpu(dev, gpu)
+    free_card()
+    train_resume(gpu)
+    free_card()
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return bwd, err, figures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2642,6 +2922,10 @@ def main() -> int:
     ap.add_argument("--gateway-only", action="store_true",
                     help="only the HTTP gateway: B1 and B3/B4 built, the encoder and the "
                          "qwen1.5-0.5b engine, the gateway: and serve: lines, then stop")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only the training slice: B4 and its backward built, the train: "
+                         "lines (B4-bwd checks and times, qwen1.5-0.5b trained at full width, "
+                         "card against CPU gradients, a checkpoint restart), then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -2668,7 +2952,11 @@ def main() -> int:
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
     build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
               else "ssd" if args.ssd_only else "sharded" if args.sharded_only
-              else "gateway" if args.gateway_only else None)
+              else "gateway" if args.gateway_only else "train" if args.train_only else None)
+    if args.train_only:
+        train_phase(dev, gpu)
+        print(f"train-only: done [{gpu}]")
+        return 0
     if args.sharded_only or args.gateway_only:
         from repro_torch.configs import get_config
         from repro_torch.configs.contriever import CONTRIEVER_MSMARCO
@@ -2778,6 +3066,9 @@ def main() -> int:
     del engine, ssm_engine, enc
     free_card()
     arch_rest(dev, gpu)
+    free_card()
+    launches["flash_attention_bwd"], errs["flash_attention_bwd"], times["flash_attention_bwd"] \
+        = train_phase(dev, gpu)
     # the MoE models last: their float32 lines copy up to 56 GB to the host,
     # and the host-bound lines above (engine:, traffic:, read:) run before
     # that, in the same order and state as before these phases were added
@@ -2794,6 +3085,8 @@ def main() -> int:
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "flash_attention/kernel.py:98"),
         ("ssd_scan", "ssd_scan/csrc/ssd_scan.cu", "ssd_scan/kernel.py:75"),
+        ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
+         "flash_attention/kernel.py:98"),
     ):
         t = times[name]
         figures.append({

@@ -2,19 +2,16 @@
 fields the port reads.
 
 Every architecture is one frozen ``ModelConfig``; reduced smoke variants
-keep the family mechanisms at tiny widths. Every family of the
-reference runs here (dense, MoE with MLA, SSM, hybrid, vision and audio;
-the MTP head's weights, not its training-only forward), so only the fields of the reference's trainer and TPU
-programs are left out; each comes back with the slice that reads it:
-
-- ``max_seq_len``, the training knobs (``remat``, ``remat_policy``,
-  ``loss_chunk``, ``optimizer``, ``grad_accum``) and the parameter counts
-  (``total_params``, ``active_params_per_token``) with the training port;
-- the TPU and mesh knobs (``use_pallas``, ``kernel_interpret``,
-  ``topk_block_n``, ``topk_grid_order``, ``attn_chunk``, ``unroll``,
-  ``infer_params_tp_only``, ``opt_pod_sharded``, ``gqa_repeat_kv``,
-  ``kv_cache_dtype``) never: the tensor's device picks the kernel, the CUDA
-  tiles are compile-time constants and attention always runs the kernels.
+keep the family mechanisms at tiny widths. Every family of the reference
+runs here (dense, MoE with MLA, SSM, hybrid, vision and audio) and trains
+(``max_seq_len``, ``remat``, ``remat_policy``, ``loss_chunk``,
+``optimizer``, ``grad_accum``, and the parameter counts ``layer_kinds``,
+``total_params`` and ``active_params_per_token``). Left out are the TPU
+and mesh knobs (``use_pallas``, ``kernel_interpret``, ``topk_block_n``,
+``topk_grid_order``, ``attn_chunk``, ``unroll``, ``infer_params_tp_only``,
+``opt_pod_sharded``, ``gqa_repeat_kv``, ``kv_cache_dtype``): the tensor's
+device picks the kernel, the CUDA tiles are compile-time constants,
+attention always runs the kernels and layers are a Python loop.
 """
 from __future__ import annotations
 
@@ -79,6 +76,7 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    max_seq_len: int = 131072
 
     # --- attention pattern -------------------------------------------------
     # cycled over layers; entries: "global" | "local" | "nope_global"
@@ -116,8 +114,13 @@ class ModelConfig:
     # --- multi-token prediction (deepseek-v3) ---------------------------------
     mtp_depth: int = 0
 
-    # --- numerics -------------------------------------------------------------
+    # --- numerics and training -------------------------------------------------
     dtype: str = "bfloat16"
+    remat: bool = True  # recompute each layer's activations in backward
+    remat_policy: str = "full"  # "full" (save nothing) | "dots" (save matmul outputs)
+    loss_chunk: int = 0  # chunk CE over the sequence axis; 0 = off
+    optimizer: str = "adamw"  # "adamw" | "adamw8bit"
+    grad_accum: int = 1  # microbatch count for train_step
 
     @property
     def d_inner(self) -> int:
@@ -126,3 +129,64 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm.headdim if self.ssm else 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kinds for the whole stack."""
+        if self.family in ("ssm", "hybrid"):
+            return ("ssm",) * self.num_layers  # hybrid: shared attn counted apart
+        return tuple(self.attn_pattern[i % len(self.attn_pattern)]
+                     for i in range(self.num_layers))
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla:
+            m = self.mla
+            return (d * m.q_lora_rank
+                    + m.q_lora_rank * self.num_heads * m.qk_head_dim
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.num_heads * m.v_head_dim * d)
+        return (d * self.num_heads * self.head_dim
+                + 2 * d * self.num_kv_heads * self.head_dim
+                + self.num_heads * self.head_dim * d)
+
+    def active_params_per_token(self) -> int:
+        """N_active for 6*N*D model-FLOPs accounting (embeddings excluded)."""
+        d, n_layers = self.d_model, self.num_layers
+        if self.family in ("ssm", "hybrid"):
+            ssm, di = self.ssm, self.d_inner
+            conv_dim = di + 2 * ssm.ngroups * ssm.d_state
+            per = (d * (2 * di + 2 * ssm.ngroups * ssm.d_state + self.ssm_heads)  # in_proj
+                   + conv_dim * ssm.d_conv
+                   + di * d)  # out_proj
+            n = n_layers * per
+            if self.family == "hybrid" and self.hybrid_period:
+                dm2 = 2 * d
+                att = 2 * (dm2 * self.num_heads * self.head_dim
+                           + dm2 * 2 * self.num_kv_heads * self.head_dim
+                           + self.num_heads * self.head_dim * dm2
+                           + 3 * dm2 * self.d_ff) // 2 + dm2 * d
+                n += (self.num_layers // self.hybrid_period) * att
+            return n
+        attn = self._attn_params()
+        if self.moe:
+            mo = self.moe
+            moe_ffn = 3 * d * mo.d_ff_expert * mo.top_k + 3 * d * mo.d_ff_shared * mo.num_shared_experts
+            dense_ffn = 3 * d * (mo.d_ff_dense or self.d_ff)
+            return (mo.first_k_dense * (attn + dense_ffn)
+                    + (n_layers - mo.first_k_dense) * (attn + moe_ffn))
+        return n_layers * (attn + 3 * d * self.d_ff)
+
+    def total_params(self) -> int:
+        """Approximate total parameter count (for memory napkin math)."""
+        d, n_layers = self.d_model, self.num_layers
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.moe:
+            mo = self.moe
+            per_moe = (3 * d * mo.d_ff_expert * mo.num_experts
+                       + 3 * d * mo.d_ff_shared * mo.num_shared_experts
+                       + d * mo.num_experts)  # router
+            dense = 3 * d * (mo.d_ff_dense or self.d_ff)
+            n += mo.first_k_dense * dense + (n_layers - mo.first_k_dense) * per_moe
+            return n + n_layers * self._attn_params()
+        return n + self.active_params_per_token()

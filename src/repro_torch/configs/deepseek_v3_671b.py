@@ -43,6 +43,9 @@ CONFIG = ModelConfig(
         d_ff_dense=18432,
     ),
     mtp_depth=1,
+    loss_chunk=512,
+    optimizer="adamw8bit",  # int8 block-quantized moments
+    grad_accum=32,
 )
 
 
@@ -76,4 +79,8 @@ def smoke() -> ModelConfig:
             d_ff_dense=192,
         ),
         mtp_depth=1,
+        max_seq_len=512,
+        loss_chunk=0,
+        optimizer="adamw",
+        grad_accum=1,
     )

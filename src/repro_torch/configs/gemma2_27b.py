@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     head_dim=128,
     d_ff=36864,
     vocab_size=256000,
+    max_seq_len=8192,
     attn_pattern=("local", "global"),
     window_size=4096,
     attn_logit_softcap=50.0,
@@ -29,6 +30,8 @@ CONFIG = ModelConfig(
     act="gelu",
     tie_embeddings=True,
     embed_scale=True,
+    loss_chunk=512,
+    grad_accum=8,
 )
 
 
@@ -44,4 +47,7 @@ def smoke() -> ModelConfig:
         vocab_size=512,
         window_size=16,
         query_scale=16.0 ** -0.5,
+        max_seq_len=512,
+        loss_chunk=0,
+        grad_accum=1,
     )

@@ -28,6 +28,7 @@ CONFIG = ModelConfig(
     act="gelu",
     tie_embeddings=True,
     embed_scale=True,
+    loss_chunk=512,
 )
 
 
@@ -42,4 +43,6 @@ def smoke() -> ModelConfig:
         d_ff=128,
         vocab_size=512,
         window_size=16,
+        max_seq_len=512,
+        loss_chunk=0,
     )

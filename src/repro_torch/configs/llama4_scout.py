@@ -35,6 +35,8 @@ CONFIG = ModelConfig(
         capacity_factor=1.25,
         router="softmax",
     ),
+    loss_chunk=512,
+    grad_accum=8,
 )
 
 
@@ -58,4 +60,7 @@ def smoke() -> ModelConfig:
             capacity_factor=1.5,
             router="softmax",
         ),
+        max_seq_len=512,
+        loss_chunk=0,
+        grad_accum=1,
     )

@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     head_dim=128,
     d_ff=14336,
     vocab_size=32000,
+    max_seq_len=32768,
     attn_pattern=("global",),
     rope_theta=1_000_000.0,
     act="silu",
@@ -29,6 +30,8 @@ CONFIG = ModelConfig(
     modality="vision",
     vision_patches=2880,  # anyres: 5 tiles x 576 patches (24x24 @ CLIP-L/14, 336px)
     d_frontend=1024,  # CLIP ViT-L/14 hidden size
+    loss_chunk=512,
+    grad_accum=4,
 )
 
 
@@ -44,4 +47,7 @@ def smoke() -> ModelConfig:
         vocab_size=512,
         vision_patches=8,
         d_frontend=32,
+        max_seq_len=512,
+        loss_chunk=0,
+        grad_accum=1,
     )

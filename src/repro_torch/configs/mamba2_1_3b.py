@@ -18,9 +18,11 @@ CONFIG = ModelConfig(
     head_dim=64,
     d_ff=0,
     vocab_size=50280,
+    max_seq_len=1_048_576,
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, headdim=64, ngroups=1, chunk_size=256),
     norm_eps=1e-5,
     tie_embeddings=True,
+    loss_chunk=512,
 )
 
 
@@ -33,4 +35,6 @@ def smoke() -> ModelConfig:
         head_dim=16,
         vocab_size=512,
         ssm=SSMConfig(d_state=16, d_conv=4, expand=2, headdim=32, ngroups=1, chunk_size=32),
+        max_seq_len=512,
+        loss_chunk=0,
     )

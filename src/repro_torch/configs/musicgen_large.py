@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     head_dim=64,
     d_ff=8192,
     vocab_size=2048,
+    max_seq_len=32768,
     attn_pattern=("global",),
     rope_theta=10_000.0,  # adaptation: RoPE in place of sinusoidal embeds, as in the reference
     act="gelu",
@@ -43,4 +44,5 @@ def smoke() -> ModelConfig:
         d_ff=128,
         vocab_size=64,
         num_codebooks=4,
+        max_seq_len=512,
     )

@@ -18,11 +18,13 @@ CONFIG = ModelConfig(
     head_dim=64,
     d_ff=2816,
     vocab_size=151936,
+    max_seq_len=32768,
     attn_pattern=("global",),
     qkv_bias=True,
     rope_theta=1_000_000.0,
     act="silu",
     tie_embeddings=True,
+    loss_chunk=512,
 )
 
 
@@ -36,4 +38,6 @@ def smoke() -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=512,
+        max_seq_len=512,
+        loss_chunk=0,
     )

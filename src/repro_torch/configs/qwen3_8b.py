@@ -18,11 +18,14 @@ CONFIG = ModelConfig(
     head_dim=128,
     d_ff=12288,
     vocab_size=151936,
+    max_seq_len=32768,
     attn_pattern=("global",),
     qk_norm=True,
     rope_theta=1_000_000.0,
     act="silu",
     tie_embeddings=False,
+    loss_chunk=512,
+    grad_accum=4,
 )
 
 
@@ -36,4 +39,7 @@ def smoke() -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=512,
+        max_seq_len=512,
+        loss_chunk=0,
+        grad_accum=1,
     )

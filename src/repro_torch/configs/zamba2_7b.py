@@ -22,6 +22,7 @@ CONFIG = ModelConfig(
     head_dim=224,  # shared attn runs at 2*d_model = 7168; 7168 / 32 = 224
     d_ff=14336,
     vocab_size=32000,
+    max_seq_len=1_048_576,
     rope_theta=10_000.0,
     act="gelu",
     mlp_gated=False,  # shared-block MLP is a plain GELU FFN
@@ -30,6 +31,8 @@ CONFIG = ModelConfig(
     hybrid_period=6,
     num_shared_blocks=2,
     norm_eps=1e-5,
+    loss_chunk=512,
+    grad_accum=16,
 )
 
 
@@ -46,4 +49,7 @@ def smoke() -> ModelConfig:
         ssm=SSMConfig(d_state=16, d_conv=4, expand=2, headdim=32, ngroups=1, chunk_size=32),
         hybrid_period=2,
         num_shared_blocks=2,
+        max_seq_len=512,
+        loss_chunk=0,
+        grad_accum=1,
     )

@@ -22,7 +22,7 @@ them through a lazily-synced numpy mirror (``last_access`` /
 after a fused read touched counters on device.
 
 Cosine lanes keep unit rows (normalized at insert), so searches never
-re-normalize the bank. Search backends: a plain torch matmul + stable sort,
+re-normalize the bank. Search backends: plain torch scores (``_dots``) + a stable sort,
 or the ``similarity_topk`` lanes kernel (``use_pallas=True``, the name kept
 from the reference: "search through the kernel wrapper"). The kernel path is
 opt-in and off by default, as in the reference; the serving test and
@@ -173,6 +173,26 @@ def _bank_touch(last: torch.Tensor, cnt: torch.Tensor, lanes: torch.Tensor,
     last.view(-1).scatter_reduce_(0, flat, stamp, "amax", include_self=True)
 
 
+# floats of one chunk's [.., Q, n, D] product in the CPU's row-wise scoring
+_CPU_SCORE_CHUNK = 1 << 22
+
+
+def _dots(db: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """db [.., N, D] . q [Q, D] -> [.., Q, N]. On the CPU each score is the
+    sum of one row-wise product, taken in the same order whatever Q and
+    chunked over N: a CPU matmul's summation order depends on Q, so one
+    query alone (``lookup``) and in a batch (``lookup_batch``) could score
+    an ulp apart and decide apart on a threshold. On the card it is
+    ``torch.matmul``, whose order the kernel's finalist re-score keeps."""
+    if db.device.type != "cpu":
+        return torch.matmul(q, db.transpose(-1, -2))
+    rows = int(np.prod(db.shape[:-2], dtype=np.int64)) * q.shape[0] * db.shape[-1]
+    n = max(1, _CPU_SCORE_CHUNK // max(rows, 1))
+    parts = [(db[..., None, s:s + n, :] * q[:, None, :]).sum(-1)
+             for s in range(0, db.shape[-2], n)]
+    return torch.cat(parts, -1) if parts else db.new_zeros(db.shape[:-2] + (q.shape[0], 0))
+
+
 def _lane_scores(db, q, metric: str, prenormalized: bool):
     """db [.., N, D] x q [Q, D] -> scores [.., Q, N] (higher = more similar)."""
     q = q.to(torch.float32)
@@ -180,13 +200,13 @@ def _lane_scores(db, q, metric: str, prenormalized: bool):
     if metric == "cosine":
         if not prenormalized:
             db = _normalize_rows(db)
-        return torch.matmul(_normalize_rows(q), db.transpose(-1, -2))
+        return _dots(db, _normalize_rows(q))
     if metric == "dot":
-        return torch.matmul(q, db.transpose(-1, -2))
+        return _dots(db, q)
     if metric == "euclidean":
         d2 = (
             (q * q).sum(-1)[:, None]
-            - 2 * torch.matmul(q, db.transpose(-1, -2))
+            - 2 * _dots(db, q)
             + (db * db).sum(-1)[..., None, :]
         )
         return -torch.sqrt(torch.clamp(d2, min=0.0))

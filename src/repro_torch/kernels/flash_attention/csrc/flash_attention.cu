@@ -97,6 +97,7 @@ constexpr int TPR = 4;            // threads per query row
 constexpr int THREADS = BQ * TPR;  // 256
 constexpr int KPT = BK / TPR;     // keys scored per thread per tile
 constexpr float NEG = -2.3e38f;
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 template <int DH, int DV>
 constexpr size_t smem_bytes() {
@@ -107,8 +108,9 @@ constexpr size_t smem_bytes() {
 template <int DH, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S, int H, int KH,
-              int nq, int causal, int window, float softcap, float scale) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int S, int H, int KH, int nq, int causal, int window, float softcap,
+              float scale) {
   constexpr int LD = DH + 1;
   constexpr int LDV = DV + 1;
   constexpr int DPT = DV / TPR;  // output dims per thread
@@ -218,6 +220,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* ob = o + (size_t)b * S * orow + (size_t)qi * orow + (size_t)h * DV;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) ob[c + TPR * i] = acc[i] / denom;
+    if (lse != nullptr && c == 0)
+      lse[((size_t)b * H + h) * S + qi] = l > 0.f ? m + logf(l) : neg_inf();
   }
 }
 
@@ -354,11 +358,19 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], floa
   }
 }
 
+// The row's log-sum-exp of its (scaled, softcapped) scores in natural units,
+// from the tensor-core kernels' log2-unit max m and the row sum l: what the
+// backward kernels recompute P from. A row with no valid key (l = 0) gets -inf.
+__device__ __forceinline__ void write_lse(float* lse, size_t at, float m, float l) {
+  lse[at] = l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : neg_inf();
+}
+
 template <int DH>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int B, int S, int H, int KH,
-             int nq, int causal, int window, float softcap, float scale) {
+             const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse, int B,
+             int S, int H, int KH, int nq, int causal, int window, float softcap,
+             float scale) {
   constexpr int LD = tc_ld(DH);
   constexpr int KSTEPS = DH / 16;  // k-steps of QK^T
   constexpr int NT = TC_BK / 8;    // 8-key n-tiles of a score tile
@@ -502,6 +514,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int qi = qi0 + 8 * r;
     if (qi >= S) continue;
+    if (lse != nullptr && lane % 4 == 0) write_lse(lse, ((size_t)b * H + h) * S + qi, m[r], lr);
     bf16* ob = o + (size_t)b * S * qrow + (size_t)qi * qrow + (size_t)h * DH + (lane % 4) * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
@@ -656,8 +669,9 @@ __host__ __device__ constexpr size_t wg_smem_bytes() {  // Q, the K/V ring, alig
 template <int DH, int DHP, int DV, int DVP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int B, int S, int H, int KH,
-                int nq, int causal, int window, float softcap, float scale) {
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse, int B,
+                int S, int H, int KH, int nq, int causal, int window, float softcap,
+                float scale) {
   constexpr int TILE = 64 * DHP * (int)sizeof(bf16);    // bytes of one 64-row Q or K tile
   constexpr int TILE_V = 64 * DVP * (int)sizeof(bf16);  // ... and V tile
   constexpr int KSTEPS = DH / 16;  // k-steps of QK^T (the padded columns are zeros)
@@ -799,6 +813,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(lr, 1e-30f);
     const int qi = qi0 + 8 * r;
     if (qi >= S) continue;
+    if (lse != nullptr && lane % 4 == 0) write_lse(lse, ((size_t)b * H + h) * S + qi, m[r], lr);
     bf16* ob = o + (size_t)b * S * orow + (size_t)qi * orow + (size_t)h * DV + (lane % 4) * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
@@ -810,6 +825,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // [B, H, S] or null (not written)
   int B, S, H, KH, causal, window;
   float softcap, scale;
 };
@@ -834,8 +850,8 @@ int launch_f32(const Args& a, cudaStream_t st) {
   const unsigned grid = (unsigned)a.B * (unsigned)a.H * (unsigned)nq;
   flash_fwd_f32<DH, DV><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.H, a.KH, nq, a.causal,
-      a.window, a.softcap, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.S, a.H, a.KH, nq,
+      a.causal, a.window, a.softcap, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -851,16 +867,16 @@ int launch_tc(const Args& a, cudaStream_t st) {
     if (int err = allow_smem(flash_fwd_wgmma<DH, DHP, DV, DVP>, smem, done)) return err;
     flash_fwd_wgmma<DH, DHP, DV, DVP><<<grid, TC_THREADS, smem, st>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.B, a.S, a.H, a.KH, nq,
-        a.causal, a.window, a.softcap, a.scale);
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.B, a.S, a.H, a.KH,
+        nq, a.causal, a.window, a.softcap, a.scale);
   } else {
     static_assert(DV == DH, "mma.sync takes one head width");
     const size_t smem = tc_smem_bytes<DH>();
     if (int err = allow_smem(flash_fwd_mma<DH>, smem, done)) return err;
     flash_fwd_mma<DH><<<grid, TC_THREADS, smem, st>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.B, a.S, a.H, a.KH, nq,
-        a.causal, a.window, a.softcap, a.scale);
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.B, a.S, a.H, a.KH,
+        nq, a.causal, a.window, a.softcap, a.scale);
   }
   return (int)cudaGetLastError();
 }
@@ -888,16 +904,18 @@ int dispatch_dh(const Args& a, int Dh, int Dv, cudaStream_t st) {
 extern "C" {
 
 // q [B, S, H, Dh], k [B, S, KH, Dh], v [B, S, KH, Dv], o [B, S, H, Dv], all
-// contiguous and of one dtype (0 = float32: the scalar kernel; 1 = bfloat16:
+// contiguous and of one dtype; lse [B, H, S] float32, or null: each row's
+// log-sum-exp of its scaled, softcapped scores (-inf for a row with no valid
+// key), which the backward (flash_attention_bwd.cu) recomputes P from (0 = float32: the scalar kernel; 1 = bfloat16:
 // the tensor-core kernel, which also needs 16-byte aligned tensors); Dv = Dh
 // in {16, 32, 64, 128, 224, 256}, or (Dh, Dv) = (192, 128); H % KH == 0;
 // window 0 = none; softcap 0 = none. Launches on `stream` and returns
 // cudaGetLastError().
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                           int S, int H, int KH, int Dh, int Dv, int dtype, int causal,
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int S, int H, int KH, int Dh, int Dv, int dtype, int causal,
                            int window, float softcap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{q, k, v, o, B, S, H, KH, causal, window, softcap, scale};
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, S, H, KH, causal, window, softcap, scale};
   if (dtype == 0) return dispatch_dh<false>(a, Dh, Dv, st);
   if (dtype == 1) return dispatch_dh<true>(a, Dh, Dv, st);
   return (int)cudaErrorInvalidValue;

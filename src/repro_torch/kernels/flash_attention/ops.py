@@ -2,8 +2,14 @@
 signature without its TPU knobs (``block_q``/``block_k`` tile a sequential
 TPU grid, ``interpret``/``use_kernel`` pick a Pallas backend). The tensor's
 device picks the Hopper kernel (CUDA) or its plain version (CPU) — see
-``kernel.py``."""
+``kernel.py``. Where autograd records the call (grad enabled and an input
+that requires it), a CUDA tensor goes through ``FlashAttentionFn``, the
+forward kernel paired with the backward kernels, and raises at a width the
+backward does not take; a CPU tensor's plain version is differentiated by
+autograd itself."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
 
@@ -11,6 +17,11 @@ from repro_torch.kernels.flash_attention import kernel as _kernel
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
     """q [B,S,H,Dh], k [B,S,KH,Dh], v [B,S,KH,Dv] -> [B,S,H,Dv] (GQA by head
     grouping; Dv = Dh, or MLA's value width)."""
-    on_cpu = q.device.type == "cpu"
-    run = _kernel.flash_attention_plain if on_cpu else _kernel.flash_attention_cuda
-    return run(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return _kernel.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                             softcap=softcap, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        _kernel.check_bwd(q, k, v)
+        return _kernel.FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale)
+    return _kernel.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                                        scale=scale)

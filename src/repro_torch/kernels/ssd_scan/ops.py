@@ -2,8 +2,15 @@
 signature without its TPU knobs (``interpret``/``use_kernel`` pick a Pallas
 backend). The tensor's device picks the Hopper kernel (CUDA) or its plain
 version (CPU) — see ``kernel.py``. ``Bm``/``Cm`` may carry G groups shared
-by H // G heads each, as well as one row per head (G = H)."""
+by H // G heads each, as well as one row per head (G = H).
+
+The kernel has no backward yet: where autograd would record the call on a
+CUDA tensor (grad enabled and an input that requires it), the wrapper
+raises rather than run the plain version on the card. On the CPU autograd
+differentiates the plain version."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.ssd_scan import kernel as _kernel
 
@@ -11,6 +18,10 @@ from repro_torch.kernels.ssd_scan import kernel as _kernel
 def ssd_scan(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
     """x [B,S,H,P], Bm/Cm [B,S,G,N], dt [B,S,H] f32, A/D [H] f32
     -> (y [B,S,H,P] in x's dtype, final state [B,H,P,N] f32)."""
-    on_cpu = x.device.type == "cpu"
-    run = _kernel.ssd_scan_plain if on_cpu else _kernel.ssd_scan_cuda
-    return run(x, Bm, Cm, dt, A, D, chunk=chunk)
+    if x.device.type == "cpu":
+        return _kernel.ssd_scan_plain(x, Bm, Cm, dt, A, D, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, dt, A, D)):
+        raise NotImplementedError(
+            "the ssd_scan kernel has no backward yet: SSM and hybrid training on the card is "
+            "ROADMAP queue A item A13b (train on the CPU with device='cpu')")
+    return _kernel.ssd_scan_cuda(x, Bm, Cm, dt, A, D, chunk=chunk)

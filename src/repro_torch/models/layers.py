@@ -5,6 +5,9 @@ Parameters are plain dicts of tensors in the reference's layout (``x @ W``,
 a leading layer axis for stacked layers). The casts sit where the
 reference puts them: norms and RoPE compute in float32 and cast back, the
 logits are float32, everything else runs in the parameters' dtype.
+``chunked_ce_loss`` walks the sequence in ``cfg.loss_chunk`` slices, each
+under ``torch.utils.checkpoint``, so neither the forward nor the backward
+holds more than one slice's [B, chunk, V] float32 logits.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 
@@ -167,3 +171,49 @@ def embed(params, tokens, cfg):
 def unembed_logits(table: torch.Tensor, h: torch.Tensor, cfg) -> torch.Tensor:
     logits = h.to(F32) @ table.to(F32).T
     return softcap(logits, cfg.final_logit_softcap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over masked positions. logits [..., V] float32, labels int;
+    returns (loss, the mask's sum floored at 1), as the reference does."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = logz - gold
+    mask = torch.ones_like(nll) if mask is None else mask.to(F32)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask) / denom, denom
+
+
+def _chunk_ce(table, h, labels, mask, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (loss * denom, denom), the terms the reference's scan sums."""
+    loss, d = cross_entropy(unembed_logits(table, h, cfg), labels, mask)
+    return loss * d, d
+
+
+def chunked_ce_loss(table, h, labels, cfg, mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-chunked unembed + CE: h [B, S, D], labels [B, S]. The
+    [B, S, V] logits are never held whole: a Python loop over chunks of
+    ``cfg.loss_chunk`` positions (the last padded, as the reference pads
+    it), each chunk recomputed in backward (``torch.utils.checkpoint``)
+    where autograd records it. ``loss_chunk = 0`` takes the logits whole."""
+    B, S, _ = h.shape
+    chunk = cfg.loss_chunk
+    if not chunk:
+        return cross_entropy(unembed_logits(table, h, cfg), labels, mask)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask.to(F32) if mask is not None else h.new_ones((B, S), dtype=F32),
+                     (0, pad))
+    tot = den = torch.zeros((), dtype=F32, device=h.device)
+    for s in range(0, S + pad, chunk):
+        args = (table, h[:, s:s + chunk], labels[:, s:s + chunk],
+                None if mask is None else mask[:, s:s + chunk], cfg)
+        if torch.is_grad_enabled():
+            t, d = checkpoint(_chunk_ce, *args, use_reentrant=False)
+        else:
+            t, d = _chunk_ce(*args)
+        tot, den = tot + t, den + d
+    return tot / torch.clamp(den, min=1.0), den

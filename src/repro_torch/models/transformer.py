@@ -19,9 +19,8 @@ at 2 * d_model with their "down" projection) in place of "layers"; moe
 ``d_ff_dense``, when there are any) and "moe_layers" (the rest, with
 ``moe.moe_ffn``) in place of "layers", their attention GQA or, with
 ``cfg.mla``, MLA, and with ``mtp_depth`` the multi-token-prediction head
-"mtp" {"block", "norm1", "norm2", "proj"}. MTP's forward is training only
-(the reference's ``loss_fn``) and comes with the training port; its
-weights are drawn and carried across here.
+"mtp" {"block", "norm1", "norm2", "proj"}, whose forward runs in
+``loss_fn`` only (training), as in the reference.
 
 API (the reference's names):
   init_params(cfg, seed=0, device=None)          -> params
@@ -35,16 +34,34 @@ API (the reference's names):
                                                              num_layers, "shared": the k/v
                                                              cache over the groups}
   forward(params, cfg, batch)                    -> (h [B, S, d], metrics)
+  loss_fn(params, cfg, batch)                    -> (loss, metrics)   (training)
   prefill(params, cfg, batch, cache)             -> (last_logits, cache)
   decode_step(params, cfg, tokens, pos, cache)   -> (logits, cache)
 The cache is updated in place and returned for the reference's signature.
+
+Serving (``forward``, ``prefill``, ``decode_step``) runs under
+``torch.no_grad()``. ``loss_fn`` runs the same stacks with autograd
+recording (``_forward``): with ``cfg.remat`` each layer (a Mamba2 block, an
+attention block, a hybrid's shared block) is one ``torch.utils.checkpoint``
+call (``use_reentrant=False``), its activations recomputed in backward;
+``remat_policy="dots"`` keeps the matrix products' outputs through a
+selective-checkpoint context and recomputes the rest, as the reference's
+``dots_with_no_batch_dims_saveable`` policy does. On the card the
+attention kernel's backward is a kernel (``FlashAttentionFn``); the
+kernels without one raise under grad (``kernels/*/ops.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.kernels.backend import DeviceLike, resolve_device
@@ -53,6 +70,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     F32,
+    chunked_ce_loss,
+    cross_entropy,
     dense_init,
     embed as embed_fn,
     init_embedding,
@@ -97,6 +116,27 @@ def _zamba_groups(cfg) -> Tuple[int, int]:
     """(groups of ``hybrid_period`` Mamba2 blocks, each followed by a shared
     block; Mamba2 blocks left over after the last group)."""
     return cfg.num_layers // cfg.hybrid_period, cfg.num_layers % cfg.hybrid_period
+
+
+# the products "dots" keeps for backward (the reference's
+# dots_with_no_batch_dims_saveable: matmul outputs saved, the rest recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` run under ``torch.utils.checkpoint`` when autograd records
+    (training: serving runs under ``torch.no_grad()``) and ``cfg.remat`` is
+    on, else ``fn`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _init_attn_stack(gen, cfg, n: int, d: int, dev, ffn: str = "mlp",
@@ -299,8 +339,12 @@ def _ssm_layers(stack, cfg, x, layers, *, cache=None, decode=False):
     for i in layers:
         lp = _layer(stack, i)
         cache_l = None if cache is None else {k: v[i] for k, v in cache.items()}
-        h = rms_norm(x, lp["ln"], cfg.norm_eps)
-        x = x + ssm_mod.ssm_block(lp["ssm"], cfg, h, cache=cache_l, decode=decode)
+
+        def block(x, lp=lp, cache_l=cache_l):
+            h = rms_norm(x, lp["ln"], cfg.norm_eps)
+            return x + ssm_mod.ssm_block(lp["ssm"], cfg, h, cache=cache_l, decode=decode)
+
+        x = _remat(block, cfg)(x)
     return x
 
 
@@ -333,7 +377,8 @@ def _run_hybrid(params, cfg, x, positions, *, cache=None, cache_pos=None, decode
                         decode=decode)
         sp = _layer(params["shared"], g % cfg.num_shared_blocks)
         sc = None if cache is None else {k: v[g] for k, v in cache["shared"].items()}
-        x = _shared_block_apply(cfg, sp, x, x0, positions, sc, cache_pos, rope)
+        x = _remat(functools.partial(_shared_block_apply, cfg, sp), cfg)(
+            x, x0, positions, sc, cache_pos, rope)
     return _ssm_layers(params["mamba"], cfg, x, range(n_groups * p, cfg.num_layers),
                        cache=m_cache, decode=decode)
 
@@ -348,27 +393,40 @@ def _attn_stacks(cfg) -> List[Tuple[str, str, int, int]]:
     return stacks + [("moe_layers", "moe", cfg.num_layers - fkd, fkd)]
 
 
+def _attn_layers(stack, cfg, x, positions, *, ffn: str, n: int, first: int = 0, cache=None,
+                 cache_pos=None, angles=None, mla_rope=None, drops=None):
+    """n attention blocks of one stack, the first being layer ``first`` of
+    the pattern and of the stacked ``cache``; ``angles`` shares one
+    (cos, sin) per theta across stacks, ``drops`` collects the MoE blocks'
+    drop fractions."""
+    angles = {} if angles is None else angles
+    windows, thetas, use_rope = layer_meta(cfg, n, first)
+    for j in range(n):
+        rope = mla_rope
+        if mla_rope is None and use_rope[j]:
+            if thetas[j] not in angles:
+                angles[thetas[j]] = rope_angles(positions, thetas[j], cfg.head_dim)
+            rope = angles[thetas[j]]
+        cache_l = None if cache is None else {k: v[first + j] for k, v in cache.items()}
+        block = functools.partial(_attn_block_body, cfg, _layer(stack, j))
+        x, metrics = _remat(block, cfg)(x, positions, windows[j], thetas[j], use_rope[j],
+                                        cache_l, cache_pos, rope, ffn)
+        if metrics and drops is not None:
+            drops.append(metrics["moe_drop_fraction"])
+    return x
+
+
 def _run_attn_layers(params, cfg, x, positions, *, cache=None, cache_pos=None):
     """The attention stacks (a MoE model's dense then MoE layers) over the
     layers' views of the one stacked cache; the metrics are the MoE layers'
     ``moe_drop_fraction`` averaged, as the reference's scan averages them."""
     angles: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}  # one (cos, sin) per theta
     mla_rope = attn_mod.mla_rope(cfg, positions) if cfg.mla is not None else None
-    drops = []
+    drops: List[torch.Tensor] = []
     for key, ffn, n, first in _attn_stacks(cfg):
-        windows, thetas, use_rope = layer_meta(cfg, n, first)
-        for j in range(n):
-            rope = mla_rope
-            if mla_rope is None and use_rope[j]:
-                if thetas[j] not in angles:
-                    angles[thetas[j]] = rope_angles(positions, thetas[j], cfg.head_dim)
-                rope = angles[thetas[j]]
-            cache_l = None if cache is None else {k: v[first + j] for k, v in cache.items()}
-            x, metrics = _attn_block_body(cfg, _layer(params[key], j), x, positions,
-                                          windows[j], thetas[j], use_rope[j], cache_l,
-                                          cache_pos, rope, ffn)
-            if metrics:
-                drops.append(metrics["moe_drop_fraction"])
+        x = _attn_layers(params[key], cfg, x, positions, ffn=ffn, n=n, first=first,
+                         cache=cache, cache_pos=cache_pos, angles=angles, mla_rope=mla_rope,
+                         drops=drops)
     if not drops:
         return x, {}
     # the mean as the reference's jnp.mean computes it: the sum times 1/n
@@ -433,14 +491,62 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
 
+def _forward(params, cfg, batch):
+    """The stack over ``batch`` without a cache, recorded by autograd when
+    it is enabled (each layer checkpointed under ``cfg.remat``):
+    (h [B, S, d], positions [B, S], metrics)."""
+    _require_ported(cfg)
+    x = _embed_input(params, cfg, batch)
+    positions = _positions(x)
+    h, metrics = _run_stacks(params, cfg, x, positions)
+    return h, positions, metrics
+
+
 @torch.no_grad()
 def forward(params, cfg, batch):
     """The stack over ``batch`` without a cache: the final-normed hidden
     states [B, S, d] and the metrics (a MoE model's ``moe_drop_fraction``,
     the mean over its MoE layers; {} otherwise)."""
-    _require_ported(cfg)
-    x = _embed_input(params, cfg, batch)
-    return _run_stacks(params, cfg, x, _positions(x))
+    h, _, metrics = _forward(params, cfg, batch)
+    return h, metrics
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE, the reference's ``loss_fn``: chunked over the sequence
+    (``layers.chunked_ce_loss``) against the unembedding; audio's CE over
+    every codebook's head ([B, K, S] tokens); vision with
+    ``vision_embeds`` [B, P, d_frontend] predicts the text tokens only,
+    from the last patch's position on; with ``mtp_depth`` (deepseek-v3)
+    0.3 times the MTP head's CE on the token after next is added and
+    reported as ``mtp_loss``. Autograd records it; each layer is
+    rematerialised under ``cfg.remat``. Returns (loss, metrics)."""
+    h, positions, metrics = _forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    if cfg.modality == "audio":
+        logits = torch.einsum("bsd,kdv->bksv", h[:, :-1].to(F32), params["heads"].to(F32))
+        loss, _ = cross_entropy(logits, tokens[:, :, 1:])
+        return loss, metrics
+
+    table = _unembed_table(params, cfg)
+    if cfg.modality == "vision" and "vision_embeds" in batch:
+        P = batch["vision_embeds"].shape[1]
+        h_pred, labels = h[:, P - 1:-1], tokens  # the text tokens 0..S-1
+    else:
+        h_pred, labels = h[:, :-1], tokens[:, 1:]
+    loss, _ = chunked_ce_loss(table, h_pred, labels, cfg)
+
+    if cfg.mtp_depth and "mtp" in params:
+        mtp = params["mtp"]
+        emb_next = embed_fn(params["embed"], tokens[:, 1:], cfg)
+        h_in = torch.cat([rms_norm(h[:, :-1], mtp["norm1"], cfg.norm_eps),
+                          rms_norm(emb_next, mtp["norm2"], cfg.norm_eps)], dim=-1) @ mtp["proj"]
+        pos = positions[:, :h_in.shape[1]]
+        mla_rope = attn_mod.mla_rope(cfg, pos) if cfg.mla is not None else None
+        h_mtp = _attn_layers(mtp["block"], cfg, h_in, pos, ffn="moe", n=1, mla_rope=mla_rope)
+        mtp_loss, _ = chunked_ce_loss(table, h_mtp[:, :-1], tokens[:, 2:], cfg)
+        loss = loss + 0.3 * mtp_loss
+        metrics = dict(metrics, mtp_loss=mtp_loss)
+    return loss, metrics
 
 
 @torch.no_grad()

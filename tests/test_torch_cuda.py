@@ -859,3 +859,144 @@ def test_gateway_serves_a_miss_then_a_hit_through_the_kernel(dev):
     assert [r.headers["x-cache"] for r in replies] == ["miss", "hit", "hit"]
     assert replies[0].text == replies[1].text == replies[2].text
     assert h._shared_bank is bank and reads >= 3 and launches == reads
+
+
+# --- B4's gradient: the forward's row log-sum-exp and the backward kernels ---
+
+BWD_CASES = [
+    # B, S, H, KH, Dh, window, softcap, causal
+    (2, 512, 16, 16, 64, 0, 0.0, True),  # qwen1.5-0.5b's training shape, cut in batch
+    (1, 300, 8, 2, 128, 0, 0.0, True),  # GQA, ragged S
+    (1, 200, 4, 4, 16, 64, 0.0, True),  # a window
+    (1, 129, 4, 1, 32, 0, 50.0, True),  # a softcap
+    (1, 100, 4, 2, 64, 30, 20.0, False),  # non-causal, window and softcap
+    (2, 1, 2, 1, 64, 0, 0.0, True),
+]
+# the worst error over the largest value, or over 1 where every value is
+# smaller (at S = 1 the exact dq and dk are 0 and both sides rounding noise)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _bwd_inputs(case, dt, dev, seed=20):
+    B, S, H, KH, Dh = case[:5]
+    q = _randn((B, S, H, Dh), dt, dev, seed)
+    k, v = _randn((B, S, KH, Dh), dt, dev, seed + 1), _randn((B, S, KH, Dh), dt, dev, seed + 2)
+    do = _randn((B, S, H, Dh), dt, dev, seed + 3)
+    return q, k, v, do
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1.0))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_lse_matches_plain(case, dt, dev):
+    """The forward's optional row log-sum-exp on every route the backward
+    reads (float32 scalar, bf16 mma.sync at 16/32, wgmma at 64/128); the
+    output is the one written without it."""
+    window, cap, causal = case[5:]
+    q, k, v, _ = _bwd_inputs(case, dt, dev)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
+    o_alone = fk.flash_attention_cuda(q, k, v, **opts)
+    _, want = fk.flash_attention_plain(q, k, v, return_lse=True, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_alone) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(case, dt, dev):
+    """dq, dk, dv of the three backward launches against the plain formula
+    on the same inputs (the kernel's own o and lse)."""
+    window, cap, causal = case[5:]
+    q, k, v, do = _bwd_inputs(case, dt, dev)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
+    before = fk.bwd_launches
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fk.bwd_launches == before + 3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dt], (name, _rel_err(a, b))
+
+
+def test_flash_bwd_is_bitwise_repeatable(dev):
+    """No atomics: the same inputs give the same gradient bits."""
+    case = BWD_CASES[1]
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, dev)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True)
+    a = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    b = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_card_matches_the_cpu(dt, dev):
+    """``ops.flash_attention`` under autograd on the card (FlashAttentionFn:
+    one forward and three backward launches) against autograd through the
+    plain version on the CPU, from the same inputs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    case = (1, 160, 8, 2, 64, 48, 30.0, True)
+    window, cap = case[5:7]
+    grads = {}
+    for where in ("cuda", "cpu"):
+        q, k, v, do = (t.to(where).requires_grad_(i < 3)
+                       for i, t in enumerate(_bwd_inputs(case, dt, dev)))
+        fwd, bwd = fk.launches, fk.bwd_launches
+        out = flash_attention(q, k, v, window=window, softcap=cap)
+        out.backward(do)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert (fk.launches - fwd, fk.bwd_launches - bwd) == (1, 3)
+        grads[where] = (q.grad, k.grad, v.grad)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(a.cpu(), b) <= BWD_TOL[dt]
+
+
+def test_training_refuses_widths_without_a_backward(dev):
+    """Under grad on the card, B4 at a width its backward does not take and
+    B5 (no backward yet) raise before launching anything; without grad the
+    same calls serve."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    q = _randn((1, 64, 2, 256), torch.bfloat16, dev, 30).requires_grad_()
+    before = fk.launches
+    with pytest.raises(NotImplementedError, match="A13b"):
+        flash_attention(q, q.detach(), q.detach())
+    qm = _randn((1, 64, 2, 192), torch.bfloat16, dev, 31).requires_grad_()
+    vm = _randn((1, 64, 2, 128), torch.bfloat16, dev, 32)
+    with pytest.raises(NotImplementedError, match="A13b"):
+        flash_attention(qm, qm.detach(), vm)
+    assert fk.launches == before
+    with torch.no_grad():
+        flash_attention(q, q, q)
+    assert fk.launches == before + 1
+    x = _randn((1, 32, 2, 64), torch.float32, dev, 33).requires_grad_()
+    bm = _randn((1, 32, 1, 16), torch.float32, dev, 34)
+    dt_ = torch.full((1, 32, 2), 0.1, device=dev)
+    a = -torch.ones(2, device=dev)
+    before = sk.launches
+    with pytest.raises(NotImplementedError, match="A13b"):
+        ssd_scan(x, bm, bm, dt_, a, torch.ones(2, device=dev))
+    assert sk.launches == before
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(dev):
+    q, k, v, do = _bwd_inputs(BWD_CASES[2], torch.bfloat16, dev)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True)
+    before = fk.bwd_launches
+    with pytest.raises(ValueError, match="aligned"):
+        fk.flash_attention_bwd_cuda(q, k, v, o, lse, _misaligned(do))
+    with pytest.raises(ValueError, match="lse"):
+        fk.flash_attention_bwd_cuda(q, k, v, o, lse.bfloat16(), do)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_bwd_cuda(q, k, v, o, lse, do.transpose(1, 2).contiguous()
+                                    .transpose(1, 2))
+    assert fk.bwd_launches == before

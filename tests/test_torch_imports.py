@@ -52,7 +52,8 @@ def test_serving_stack_import_leaves_jax_out():
         "import sys, repro_torch, repro_torch.serving.service, repro_torch.core, "
         "repro_torch.serving.engine, repro_torch.models.ssm, repro_torch.kernels.ssd_scan, "
         "repro_torch.distributed.sharded_read, repro_torch.launch.mesh, "
-        "repro_torch.gateway, repro_torch.gateway.traffic, repro_torch.launch.serve; "
+        "repro_torch.gateway, repro_torch.gateway.traffic, repro_torch.launch.serve, "
+        "repro_torch.launch.train, repro_torch.checkpoint, repro_torch.data.loader; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'repro' not in sys.modules, 'repro imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
@@ -77,15 +78,20 @@ def test_every_module_imports_without_a_build():
     gateway = {f"repro_torch.gateway.{m}" for m in
                ("protocol", "errors", "http", "client", "app", "traffic")}
     assert gateway <= set(names) and "repro_torch.launch.serve" in names
+    training = {f"repro_torch.training.{m}" for m in
+                ("optimizer", "schedule", "grad_compress", "train_loop")}
+    assert training | {"repro_torch.launch.train", "repro_torch.checkpoint.checkpoint",
+                       "repro_torch.data.loader"} <= set(names)
     for name in names:
         importlib.import_module(name)
     if not torch.cuda.is_available():
         for kernel in (topk, flash, decode, ssd):
             assert not kernel.LIB.loaded  # nothing was compiled or loaded
+        assert not flash.LIB_BWD.loaded
 
 
 def test_port_examples_exist_beside_the_reference():
     ported = {p.name for p in (ROOT / "examples").glob("torch_*.py")}
     assert ported == {f"torch_{n}.py" for n in (
         "quickstart", "async_service", "http_gateway", "serve_with_cache",
-        "hierarchical_multipod", "adaptive_tuning")}
+        "hierarchical_multipod", "adaptive_tuning", "train_lm")}
