@@ -36,13 +36,15 @@ depth and width in bfloat16: gemma2-27b, gemma3-4b (head width 256) and
 llava-next-mistral-7b (text) behind ServingEngine, musicgen-large (4
 codebooks) through its own prefill and decode calls; then the two MoE
 models at full width cut in depth (neither fits one card whole) behind
-ModelBackend -> ServingEngine: llama4-scout-17b-a16e (8 of 48 layers, 16
-experts top-1, B4/B3 at H 40 over KH 8) and deepseek-v3-671b (3 dense + 2
+ModelBackend -> ServingEngine: llama4-scout-17b-a16e (4 of 48 layers, 16
+experts top-1, B4/B3 at H 40 over KH 8) and deepseek-v3-671b (2 dense + 1
 MoE of 61 layers, 256 experts top-8, MLA: prefill through B4 at q/k width
 192 and value width 128, decode absorbed into the latent space in plain
-torch, without B3); and trains qwen1.5-0.5b at full width through
-``repro_torch.launch.train.main`` (bfloat16, AdamW, full remat), its
-attention's gradient through the flash-attention backward kernel.
+torch, without B3); and trains qwen1.5-0.5b and mamba2-1.3b at full width
+through ``repro_torch.launch.train.main`` (bfloat16, AdamW, full remat),
+their gradients through the flash-attention and SSD-scan backward
+kernels, and zamba2-7b, gemma3-4b (head width 256) and deepseek-v3-671b
+(MLA) cut in depth for a few steps each.
 
 Lines it prints, in order: ``gpu:`` (card, power limit, torch/CUDA),
 ``build:`` (nvcc seconds per library; B1's stream route and main-path
@@ -103,22 +105,29 @@ with ``--coalesce``, then ``--shards 8``: the HIT/MISS sequence, counts,
 mesh positions and launches), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
 ``engine: musicgen-large model-level``, ``train:`` (B4's backward against
-its plain version at six shapes with its ``time:`` lines, SDPA's backward
-the library yardstick; qwen1.5-0.5b at full width, 30 steps of 8 x 512
-tokens through ``launch.train.main``: step p50, tokens/s, the first and
-last loss against ln V, peak memory, B4 and B4-bwd launches checked
-exactly, one step profiled; a 2-layer cut's gradients and one AdamW
-update on the card against the CPU in float32; a checkpoint restart
-against an uninterrupted run), then the MoE models' lines, last
+its plain version at every head width, (192, 128) included, and B5's at
+mamba2-1.3b's and zamba2-7b's training shapes, one chunk and a ragged
+one, with their ``time:`` lines, SDPA's backward the library yardstick
+for B4's; qwen1.5-0.5b (30 steps) and mamba2-1.3b (20 steps) at full
+width, 8 x 512 tokens through ``launch.train.main``: step p50, tokens/s,
+the first and last loss against ln V, peak memory, the kernels' and
+their backward's launches checked exactly, one step each profiled;
+qwen's and mamba2's 2-layer cuts and zamba2-7b's one group, gradients
+and one AdamW update on the card against the CPU in float32; a
+checkpoint restart against an uninterrupted run; short bf16 runs of
+zamba2-7b's group, gemma3-4b's first 6 layers and deepseek-v3's 2 dense
+layers with launches exact and the loss falling), then the MoE models'
+lines, last
 so that the host copies of their float32 lines come after every
 host-bound line above: ``moe:`` per MoE model and token count (one
 full-width MoE layer in float32, card against CPU: expert flips above a
 1e-4 score gap, drop fractions, outputs), their ``model:`` lines (cut to
-4 layers, and to 1 dense + 1 MoE layer), their ``engine:`` and
+2 layers, and to 1 dense + 1 MoE layer), their ``engine:`` and
 ``profile:`` lines and an ``engine: ... ModelBackend`` line each,
 ``kernels:`` (launches per kernel on the main path), then a JSON line of
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``; a ``phase:`` line after each phase
+gives its wall seconds.
 ``--profile`` adds ``profile:`` lines after ``read:``: one fused read's
 device time by kernel and the device's busy share. ``--attention-only``
 runs only B3 and B4 (build, checks, times, the long-engine line),
@@ -133,8 +142,9 @@ llama4's shapes, checked and timed; ``moe:``, ``model:``, ``engine:``,
 and B3/B4 built, the qwen1.5-0.5b engine for the replay),
 ``--gateway-only`` only the ``gateway:`` and ``serve:`` lines (the same
 build and engine; the wire's cost against ``traffic:`` is then not
-printed), ``--train-only`` only the ``train:`` lines (B4 and its
-backward built), and
+printed), ``--train-only`` only the ``train:`` lines (B4, B5 and their
+backward kernels built) and short runs of qwen3-8b, gemma2-27b, llava,
+musicgen and llama4-scout besides, and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -143,6 +153,7 @@ and when the ``src/repro_torch`` package is not beside it.
 """
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -168,8 +179,8 @@ LONG_SEQ, LONG_PROMPT = 8192, 2048  # the long-engine line: a RAG-sized prompt a
 # so each runs at full width cut in depth: (layers, leading dense layers),
 # MTP off (it is not on the serving path)
 MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
-MOE_MODEL_CUTS = {MOE_ARCHS[0]: (4, 0), MOE_ARCHS[1]: (2, 1)}  # float32 model: lines
-MOE_ENGINE_CUTS = {MOE_ARCHS[0]: (8, 0), MOE_ARCHS[1]: (5, 3)}  # bfloat16 engines
+MOE_MODEL_CUTS = {MOE_ARCHS[0]: (2, 0), MOE_ARCHS[1]: (2, 1)}  # float32 model: lines
+MOE_ENGINE_CUTS = {MOE_ARCHS[0]: (4, 0), MOE_ARCHS[1]: (3, 2)}  # bfloat16 engines
 MOE_TOKENS = (4, 128)  # the moe: lines' token counts
 # host memory the CPU run of a model: line needs beside its weights' copy
 # (activations of a 32-token prefill, well under 1 GB at full width)
@@ -205,7 +216,7 @@ def host_ms(fn, iters=20, warmup=3, windows=5):
     return statistics.median(times)
 
 
-def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3):
+def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3, per_call=None):
     """Device time of one call of ``fn`` and the CUDA kernels it launches:
     the summed durations of the kernels (copies and memsets included) it runs
     on the card, from a torch.profiler trace of ``iters`` calls, the kernels
@@ -213,7 +224,8 @@ def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3):
     kernel of a call in launch order. Now and then CUPTI hands back a trace
     with no device activity in it, or one that lost kernel records; a trace
     that reads below ``bound_ms``, the least time the card could take for the
-    work, is taken again, and after ``traces`` such readings the time comes
+    work, or (given ``per_call``) holds another number of kernels a call than
+    ``per_call``, is taken again, and after ``traces`` such readings the time comes
     from ``queued_event_ms`` instead (kernels per call and per kernel then
     None), with a ``timer:`` line saying so."""
     import torch
@@ -230,8 +242,8 @@ def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3):
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         ms = sum(e.device_time_total for e in events) / 1e3 / iters
-        if ms > 0 and ms >= bound_ms:
-            kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+        if ms > 0 and ms >= bound_ms and per_call in (None, len(kernels) / iters):
             per = len(kernels) // iters
             each = [sum(e.device_time_total for e in kernels[i::per]) / 1e3 / iters
                     for i in range(per)] if per * iters == len(kernels) else None
@@ -239,14 +251,15 @@ def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3):
         read.append(ms)
     ms = queued_event_ms(fn, iters)
     print(f"timer: {traces} profiler traces read {', '.join(f'{t:.4f}' for t in read)} ms, "
-          f"none at or above the bound {bound_ms:.4f} ms; CUDA events behind a spin kernel "
-          f"read {ms:.4f} ms")
+          f"none at or above the bound {bound_ms:.4f} ms"
+          + ("" if per_call is None else f" with {per_call:g} kernels a call")
+          + f"; CUDA events behind a spin kernel read {ms:.4f} ms")
     return ms, None, None
 
 
-def device_ms(fn, bound_ms, iters=20, warmup=3, traces=3):
+def device_ms(fn, bound_ms, iters=20, warmup=3, traces=3, per_call=None):
     """``device_trace``'s time alone."""
-    return device_trace(fn, bound_ms, iters, warmup, traces)[0]
+    return device_trace(fn, bound_ms, iters, warmup, traces, per_call)[0]
 
 
 def queued_event_ms(fn, iters=20):
@@ -446,7 +459,7 @@ def kernel_times(kern, dev, gpu):
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
     library's build time. ``only`` = "attention", "topk", "ssd", "train"
-    (B4 and its backward), or "sharded" or "gateway" (B1/B2 and B3/B4)
+    (B4, B5 and their backward kernels), or "sharded" or "gateway" (B1/B2 and B3/B4)
     builds those kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -462,8 +475,8 @@ def build_all(only=None):
 
     libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
             "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB],
-            "train": [fk.LIB, fk.LIB_BWD]}.get(
-        only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB, fk.LIB_BWD])
+            "train": [fk.LIB, fk.LIB_BWD, sk.LIB, sk.LIB_BWD]}.get(
+        only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB, fk.LIB_BWD, sk.LIB_BWD])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         done = list(ex.map(timed, libs))
@@ -2627,12 +2640,15 @@ def arch_rest(dev, gpu):
     free_card()
 
 
-# --- training (A13): B4's backward kernel and the train path ---------------
+# --- training (A13, A13b): the backward kernels and the train path ----------
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512  # the train: phase's run of launch.train
+SSM_TRAIN_STEPS = 20  # mamba2-1.3b's run of launch.train, at the same batch and length
+SHORT_STEPS = 4  # the short bf16 runs
 TRAIN_LR = 1e-3
+SHORT_LR = 3e-4  # the short runs repeat one batch: 1e-3 overshot llama4's MoE layer (12.7 -> 16.1)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # worst error over max(largest value, 1)
-# B4-bwd check and time shapes: (label, B, S, H, KH, Dh, window, softcap, dtype)
+# B4-bwd check and time shapes: (label, B, S, H, KH, Dh, window, softcap, dtype[, Dv])
 BWD_CASES = [
     (f"{LLM} train", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, 0, 0.0, "bfloat16"),
     ("S=2048", 1, 2048, 16, 16, 64, 0, 0.0, "bfloat16"),
@@ -2640,23 +2656,63 @@ BWD_CASES = [
     ("window=1024", 1, 2048, 16, 16, 64, 1024, 0.0, "bfloat16"),
     ("softcap=50", 1, 512, 16, 16, 64, 0, 50.0, "bfloat16"),
     ("float32", 1, 128, 16, 16, 64, 0, 0.0, "float32"),
+    ("zamba2-7b train Dh=224", 1, TRAIN_SEQ, 32, 32, 224, 0, 0.0, "bfloat16"),
+    ("gemma3-4b train Dh=256", 2, 2048, 8, 4, 256, 0, 0.0, "bfloat16"),
+    ("gemma3-4b train local", 2, 2048, 8, 4, 256, 1024, 0.0, "bfloat16"),
+    ("deepseek-v3 train (192, 128)", 1, TRAIN_SEQ, 128, 128, 192, 0, 0.0, "bfloat16", 128),
+    ("float32 Dh=224", 1, 300, 32, 32, 224, 0, 0.0, "float32"),
+    ("float32 Dh=256 window", 1, 300, 8, 4, 256, 64, 0.0, "float32"),
+    ("float32 (192, 128)", 1, 300, 16, 16, 192, 0, 0.0, "float32", 128),
 ]
 BWD_KERNELS_PER_CALL = 3  # rowsum(dO o), dK/dV, dQ
+# B5-bwd check and time shapes: (label, B, S, H, G, P, N, chunk, dtype, with dstate)
+SSD_BWD_CASES = [
+    (f"{SSM_LLM} train", TRAIN_BATCH, TRAIN_SEQ, 64, 1, 64, 128, 256, "bfloat16", False),
+    ("zamba2-7b train", 1, TRAIN_SEQ, 112, 2, 64, 64, 256, "bfloat16", False),
+    ("one chunk", 1, 200, 64, 1, 64, 128, 256, "bfloat16", True),
+    ("ragged", 1, 300, 64, 1, 64, 128, 256, "bfloat16", True),
+    ("float32 two chunks", 1, TRAIN_SEQ, 64, 1, 64, 128, 256, "float32", True),
+    ("float32 zamba2 ragged", 1, 300, 112, 2, 64, 64, 256, "float32", False),
+]
+SSD_BWD_TOL = {"float32": SSD_TOL, "bfloat16": BF16_TOL}  # over each gradient's largest value
+# the card-vs-CPU gradient lines: (model, layers, S), float32, B = 1; S past
+# one 256-step chunk, so that the second chunk is ragged
+GRAD_CUTS = [(LLM, 2, 128), (SSM_LLM, 2, 300), ("zamba2-7b", 6, 260)]
+# short bf16 runs at full width cut in depth: (model, layers, dense layers,
+# B, S, microbatches a step); one microbatch holds the optimizer state and
+# one set of bf16 gradients, where the configs' float32 accumulation of 8
+# or 32 microbatches would not fit beside a 2-4 B-parameter cut
+SHORT_RUNS = [
+    ("zamba2-7b", 6, 0, 16, TRAIN_SEQ, 16),  # one group; its grad_accum of 16
+    ("gemma3-4b", 6, 0, 2, 2048, 1),  # five window-1024 local layers and one global
+    ("deepseek-v3-671b", 2, 2, 1, TRAIN_SEQ, 1),  # its first two (dense) layers, MTP off
+]
+# with --train-only: the families whose kernels trained before A13b. AdamW
+# holds the old and the new float32 moments at once (~22 bytes a parameter):
+# gemma2-27b's 256000 x 4608 table leaves room for one (softcapped) layer,
+# and llama4's one MoE layer (4.27 B parameters) takes the 8-bit moments
+EXTRA_SHORT_RUNS = [
+    ("qwen3-8b", 2, 0, 2, TRAIN_SEQ, 1), ("gemma2-27b", 1, 0, 2, TRAIN_SEQ, 1),
+    ("llava-next-mistral-7b", 2, 0, 2, TRAIN_SEQ, 1), (AUDIO_LLM, 2, 0, 2, TRAIN_SEQ, 1),
+    (MOE_ARCHS[0], 1, 0, 1, TRAIN_SEQ, 1, "adamw8bit"),
+]
 
 
-def flash_bwd_bound(B, S, H, KH, Dh, window, dtype):
+def flash_bwd_bound(B, S, H, KH, Dh, window, dtype, Dv=None):
     """The card's least time for the attention backward: q, k, v, o, dO and
     lse read once, dq, dk, dv written once, against the five products of a
     (query, key) pair a query attends to (QK^T recomputed, dP, dV, dK, dQ:
-    10 Dh FLOP per pair) at the dtype's peak."""
+    6 Dh + 4 Dv FLOP per pair) at the dtype's peak."""
     import torch
 
+    Dv = Dv or Dh
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
     size = 4 if dtype == torch.float32 else 2
-    nbytes = size * (3 * B * S * H * Dh + 2 * B * S * KH * Dh) + 4 * B * H * S \
-        + size * (B * S * H * Dh + 2 * B * S * KH * Dh)
+    q_el, kv_el = B * S * H, B * S * KH
+    nbytes = size * (q_el * (Dh + 2 * Dv) + kv_el * (Dh + Dv)) + 4 * B * H * S \
+        + size * (q_el * Dh + kv_el * (Dh + Dv))
     rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-    return _bound(nbytes, 10 * B * H * Dh * pairs, rate)
+    return _bound(nbytes, B * H * (6 * Dh + 4 * Dv) * pairs, rate)
 
 
 def _rel_err(got, want):
@@ -2667,8 +2723,9 @@ def _rel_err(got, want):
 def flash_bwd_checks(dev, gpu):
     """B4's backward kernel against its plain version on the card at
     ``BWD_CASES``, with each case's kernel, plain and library (SDPA's
-    backward, a yardstick the port never calls) device ms and its bound.
-    Returns (worst abs error, the figures of the phase's own shape)."""
+    backward, a yardstick the port never calls, where SDPA takes the case)
+    device ms and its bound. Returns (worst abs error, the figures of the
+    phase's own shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -2676,10 +2733,13 @@ def flash_bwd_checks(dev, gpu):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     worst, first = 0.0, None
-    for label, B, S, H, KH, Dh, w, cap, dt_name in BWD_CASES:
+    for label, B, S, H, KH, Dh, w, cap, dt_name, *dv in BWD_CASES:
         dt = getattr(torch, dt_name)
-        q, do = (torch.randn((B, S, H, Dh), generator=g, device=dev).to(dt) for _ in "qd")
-        k, v = (torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt) for _ in "kv")
+        Dv = dv[0] if dv else Dh
+        q = torch.randn((B, S, H, Dh), generator=g, device=dev).to(dt)
+        do = torch.randn((B, S, H, Dv), generator=g, device=dev).to(dt)
+        k = torch.randn((B, S, KH, Dh), generator=g, device=dev).to(dt)
+        v = torch.randn((B, S, KH, Dv), generator=g, device=dev).to(dt)
         opts = dict(window=w, softcap=cap)
         o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
         got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
@@ -2688,14 +2748,16 @@ def flash_bwd_checks(dev, gpu):
         rel = max(_rel_err(a, b) for a, b in zip(got, want))
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
         ok = rel <= BWD_TOL[dt_name] and all(bool(torch.isfinite(a).all()) for a in got)
-        print(f"train: check B4-bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} Dh={Dh} "
+        widths = f"Dh={Dh}" + (f" Dv={Dv}" if Dv != Dh else "")
+        print(f"train: check B4-bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} {widths} "
               f"window={w} softcap={cap} dq/dk/dv max_abs_err={err:.3e} rel_err={rel:.3e} "
               f"tol={BWD_TOL[dt_name]} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"B4's backward disagrees with its plain version: {label}")
         worst = max(worst, err)
-        bound, by = flash_bwd_bound(B, S, H, KH, Dh, w, dt)
-        k_ms = device_ms(lambda: fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts), bound)
+        bound, by = flash_bwd_bound(B, S, H, KH, Dh, w, dt, Dv)
+        k_ms = device_ms(lambda: fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts), bound,
+                         per_call=BWD_KERNELS_PER_CALL)
         p_ms = device_ms(lambda: fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts),
                          bound, iters=3)
         # the library's backward: SDPA's autograd graph, run again and again
@@ -2705,14 +2767,14 @@ def flash_bwd_checks(dev, gpu):
             sdpa = dict(attn_mask=(pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w))
         else:
             sdpa = dict(is_causal=True)
-        l_ms = None
+        l_ms, lib = None, "n/a (no softcap)"
         if not cap:  # SDPA has no softcap
             ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KH != H, **sdpa)
             dot = do.transpose(1, 2)
             l_ms = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                          retain_graph=True), bound)
-        lib = "n/a (no softcap)" if l_ms is None else f"{l_ms:.4f}"
-        print(f"time: flash_attention_bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} Dh={Dh} "
+            lib = f"{l_ms:.4f}"
+        print(f"time: flash_attention_bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} {widths} "
               f"window={w} softcap={cap} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"library_ms={lib} bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.4f} "
               f"kernels_per_call={BWD_KERNELS_PER_CALL} [{gpu}]")
@@ -2723,7 +2785,123 @@ def flash_bwd_checks(dev, gpu):
     return worst, first
 
 
-def profile_train_step(step_fn, state, batch, gpu):
+def ssd_bwd_flops(S, H, G, P, N, L):
+    """FLOP of the scan's backward at batch 1, on the causal pairs s <= l of
+    each chunk as ``ssd_flops`` counts them: C B^T once per B/C group (over
+    N); per head dy x^T and scores^T dy (over P) and dcb B and dcb^T C (over
+    N) on the pairs, and five products the size of a chunk's state update
+    (its own state and state gradient, dy S_c, G B and x G: 2 L P N each)."""
+    total = 0
+    for c0 in range(0, S, L):
+        lc = min(L, S - c0)
+        pairs2 = lc * (lc + 1)  # 2 FLOP a multiply-add over lc (lc + 1) / 2 pairs
+        total += G * N * pairs2 + H * (2 * (P + N) * pairs2 + 10 * lc * P * N)
+    return total
+
+
+def ssd_bwd_bound(B, S, H, G, P, N, L, dtype, with_state):
+    """The card's least time for the scan's backward: x, dy, B, C, dt, A, D
+    (and the state's gradient) read once, dx, dB, dC, ddt, dA, dD written
+    once, against ``ssd_bwd_flops`` at the dtype's peak."""
+    import torch
+
+    size = 4 if dtype == torch.float32 else 2
+    nbytes = (size * (3 * B * S * H * P + 4 * B * S * G * N) + 4 * (2 * B * S * H + 4 * H)
+              + (4 * B * H * P * N if with_state else 0))
+    rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    return _bound(nbytes, B * ssd_bwd_flops(S, H, G, P, N, min(L, S)), rate)
+
+
+def ssd_bwd_checks(dev, gpu):
+    """B5's backward kernels against their plain version on the card at
+    ``SSD_BWD_CASES``: each gradient within ``SSD_BWD_TOL`` of its largest
+    value, the first case run twice for the same bits; kernel, plain and
+    bound device ms and the CUDA kernels per call (no PyTorch call computes
+    the scan or its gradient: library none). Returns (worst abs error, the
+    figures of mamba2-1.3b's train shape)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    worst, first = 0.0, None
+    for i, (label, B, S, H, G, P, N, chunk, dt_name, with_state) in enumerate(SSD_BWD_CASES):
+        dt = getattr(torch, dt_name)
+        args = ssd_inputs(B, S, H, G, P, N, dt, g)
+        dy = torch.randn((B, S, H, P), generator=g, device=dev).to(dt)
+        dstate = torch.randn((B, H, P, N), generator=g, device=dev) if with_state else None
+
+        def kernel():
+            return sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+
+        got = kernel()
+        want = sk.ssd_scan_bwd_plain(*args, dy, dstate, chunk=chunk)
+        repeat = ""
+        if i == 0:  # no atomics: the same bits again
+            same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+            repeat = f" second call {'same bits' if same else 'DIFFERS'}"
+        torch.cuda.synchronize()
+        rels = [_rel_err(a, b) for a, b in zip(got, want)]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        ok = (max(rels) <= SSD_BWD_TOL[dt_name] and "DIFFERS" not in repeat
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        shape = f"B={B} S={S} H={H} G={G} P={P} N={N} chunk={chunk}"
+        print(f"train: check B5-bwd {label} {dt_name} {shape} dstate={'yes' if with_state else 'no'}"
+              f" dx/dB/dC/ddt/dA/dD rel_err=" + "/".join(f"{r:.2e}" for r in rels)
+              + f" max_abs_err={err:.3e} tol={SSD_BWD_TOL[dt_name]}{repeat} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"B5's backward disagrees with its plain version: {label}")
+        worst = max(worst, err)
+        bound, by = ssd_bwd_bound(B, S, H, G, P, N, chunk, dt, with_state)
+        k_ms, kernels, each = device_trace(kernel, bound, per_call=sk.BWD_KERNELS)
+        p_ms = device_ms(lambda: sk.ssd_scan_bwd_plain(*args, dy, dstate, chunk=chunk), bound,
+                         iters=3)
+        print(f"time: ssd_scan_bwd {label} {dt_name} {shape} kernel_ms={k_ms:.4f} "
+              f"cuda_kernels_per_call={'n/a' if kernels is None else f'{kernels:g}'} "
+              f"kernel_ms_each={'n/a' if each is None else '/'.join(f'{t:.4f}' for t in each)} "
+              f"plain_ms={p_ms:.4f} library_ms=none bound_ms={bound:.4f} ({by}) "
+              f"share_of_bound={bound / k_ms:.4f} [{gpu}]")
+        if first is None:
+            first = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bound, bound_by=by)
+        del args, dy, dstate, got, want
+        torch.cuda.empty_cache()
+    return worst, first
+
+
+def train_launches():
+    """``engine_launches`` and the two backward kernels' CUDA launches."""
+    fk, sk = engine_kernels()["flash_attention"], engine_kernels()["ssd_scan"]
+    return {**engine_launches(), "flash_attention_bwd": fk.bwd_launches,
+            "ssd_scan_bwd": sk.bwd_launches}
+
+
+def expected_train_launches(cfg, steps):
+    """What a train run of ``steps`` steps of ``cfg`` must count: per
+    microbatch each B4/B5 call of the forward once, again in the backward's
+    recompute under remat, and its backward's CUDA kernels once."""
+    sk = engine_kernels()["ssd_scan"]
+    calls = steps * max(cfg.grad_accum, 1)
+    per = {name: n for name, (call, n) in path_kernels(cfg).items() if call == "prefill"}
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * per.get("flash_attention", 0) * calls,
+            "decode_attention": 0,
+            "ssd_scan": fwd * per.get("ssd_scan", 0) * calls,
+            "flash_attention_bwd": BWD_KERNELS_PER_CALL * per.get("flash_attention", 0) * calls,
+            "ssd_scan_bwd": sk.BWD_KERNELS * per.get("ssd_scan", 0) * calls}
+
+
+def check_train_launches(label, cfg, steps, got):
+    """Print the run's launches against ``expected_train_launches``; raise
+    where they differ."""
+    want = expected_train_launches(cfg, steps)
+    print(f"train: launches {label} over {steps} steps x {max(cfg.grad_accum, 1)} microbatches "
+          + " ".join(f"{k}={got[k]} (want {want[k]})" for k in want))
+    if got != want:
+        raise AssertionError(f"{label}: the train run did not launch the kernels as counted")
+
+
+def profile_train_step(step_fn, state, batch, gpu, label=LLM):
     """One train step under torch.profiler: its device ms (the CUDA
     kernels' summed durations), kernels launched, the device's busy share
     of the step's wall time, and the five kernel groups that take most."""
@@ -2745,11 +2923,13 @@ def profile_train_step(step_fn, state, batch, gpu):
         name = e.name
         key = ("flash_bwd (B4-bwd)" if "flash_bwd" in name else
                "flash_fwd (B4)" if "flash_fwd" in name else
+               "ssd_bwd (B5-bwd)" if "ssd_bwd" in name else
+               "ssd_scan (B5)" if name.startswith(("ssd_chunk", "ssd_state")) else
                "gemm" if ("gemm" in name.lower() or "sm90" in name or "cutlass" in name) else
                name.split("<")[0].split("(")[0][:48])
         groups[key] = groups.get(key, 0.0) + e.device_time_total / 1e3
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:5]
-    print(f"train: profile one step device_ms={dev_ms:.2f} wall_ms={wall:.2f} "
+    print(f"train: profile {label} one step device_ms={dev_ms:.2f} wall_ms={wall:.2f} "
           f"busy={dev_ms / wall:.3f} kernels={len(kernels)} top: "
           + "; ".join(f"{k} {v:.2f} ms" for k, v in top) + f" [{gpu}]")
     if dev_ms <= 0 or not kernels:
@@ -2757,11 +2937,63 @@ def profile_train_step(step_fn, state, batch, gpu):
     return state
 
 
-def train_grads_vs_cpu(dev, gpu):
-    """qwen1.5-0.5b cut to 2 layers at full width, float32 with TF32 off
-    (``full_fp32``), B = 1, S = 128: every gradient leaf and one AdamW
-    update on the card against the same on the CPU, from the same weights
-    and batch."""
+def train_full(gpu, name, steps):
+    """``name`` at full width (bfloat16, AdamW, its loss_chunk, full remat)
+    for ``steps`` steps through ``repro_torch.launch.train.main`` on
+    ``ShardedLoader`` at global batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``: step
+    p50, tokens/s, the first and last loss against ln V, peak memory, the
+    kernels' launches over the run checked exactly, the loss falling, one
+    step profiled. Returns the launches."""
+    import math
+
+    import torch
+
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training.train_loop import make_train_step
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    reset_engine_launches()
+    losses = train_main(["--arch", name, "--steps", str(steps), "--global-batch",
+                         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                         "--seed", str(SEED), "--log-every", "10"], report=report)
+    counts = train_launches()
+    cfg = report["cfg"]
+    p50 = statistics.median(report["step_s"][2:]) * 1e3
+    uniform = math.log(cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: {name} full width ({cfg.num_layers} x {cfg.d_model}, vocab {cfg.vocab_size}) "
+          f"{cfg.dtype} AdamW loss_chunk={cfg.loss_chunk} remat={cfg.remat_policy} "
+          f"{steps} steps B={TRAIN_BATCH} S={TRAIN_SEQ} lr={TRAIN_LR}: step p50 "
+          f"{p50:.2f} ms (first {report['step_s'][0] * 1e3:.1f} ms) "
+          f"tokens/s={TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3):.0f} loss first={losses[0]:.4f} "
+          f"last={losses[-1]:.4f} ln V={uniform:.4f} max_memory_allocated={peak:.2f} GiB "
+          f"[{gpu}]")
+    check_train_launches(name, cfg, steps, counts)
+    # the stream's bigrams cannot be learned from 123k tokens at qwen's V =
+    # 151936, and random unit-variance logits start ~0.5 above ln V: a short
+    # run shows the loss falling, not reaching below ln V (PERF.md, Findings)
+    print(f"train: {name} loss fell {losses[0] - losses[-1]:.4f} (min {min(losses):.4f}); "
+          f"last below ln V: {'yes' if losses[-1] < uniform else 'no'}")
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise AssertionError(f"{name}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=3, total_steps=steps)
+    batch = next(ShardedLoader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1))
+    profile_train_step(step_fn, report.pop("state"), batch, gpu, name)
+    report.clear()
+    free_card()
+    return counts
+
+
+def train_grads_vs_cpu(dev, gpu, name=LLM, layers=2, S=128):
+    """``name`` cut to ``layers`` layers at full width, float32 with TF32
+    off (``full_fp32``), one microbatch of B = 1 x ``S``: every gradient leaf
+    and one AdamW update on the card against the same on the CPU, from the
+    same weights and batch, with the card's kernel launches counted."""
+    import dataclasses
+
     import torch
 
     from repro_torch.data.loader import ShardedLoader
@@ -2769,32 +3001,88 @@ def train_grads_vs_cpu(dev, gpu):
     from repro_torch.training.optimizer import adamw_update, init_opt_state, tree_leaves
     from repro_torch.training.train_loop import _microbatch_grads, opt_config
 
-    cfg = cut_config(LLM, layers=2, dtype="float32")
-    params = T.init_params(cfg, SEED, device="cpu")
-    batch = {"tokens": torch.from_numpy(ShardedLoader(cfg.vocab_size, 1, 128, seed=SEED)
+    cfg = dataclasses.replace(cut_config(name, layers=layers, dtype="float32"), grad_accum=1)
+    params = _tree_to(T.init_params(cfg, SEED, device=dev), torch.device("cpu"))
+    batch = {"tokens": torch.from_numpy(ShardedLoader(cfg.vocab_size, 1, S, seed=SEED)
                                         ._batch_at(0))}
     out = {}
     for where in ("cuda", "cpu"):
         p = _tree_to(params, torch.device(where))
         b = {k: v.to(where) for k, v in batch.items()}
+        reset_engine_launches()
         grads, loss, _ = _microbatch_grads(cfg, p, b, torch.float32)
         new_p, _, m = adamw_update(p, grads, init_opt_state(p, opt_config(cfg)),
                                    torch.tensor(0, dtype=torch.int32), 1e-3, opt_config(cfg))
+        if where == "cuda":
+            check_train_launches(f"card-vs-cpu {name}", cfg, 1, train_launches())
         out[where] = ([x.detach().cpu() for x in tree_leaves(grads)],
                       [x.cpu() for x in tree_leaves(new_p)], float(loss), float(m["grad_norm"]))
         del p, grads, new_p
+        free_card()
     g_err = max(_rel_err(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
     p_err = max(_rel_err(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
     l_err = abs(out["cuda"][2] - out["cpu"][2])
     ok = g_err <= MODEL_TOL and p_err <= MODEL_TOL and l_err <= MODEL_TOL
-    print(f"train: card-vs-cpu {cut_text(cfg)} float32 (TF32 off) B=1 S=128 "
+    print(f"train: card-vs-cpu {name} {cut_text(cfg)} float32 (TF32 off) B=1 S={S} "
           f"loss card={out['cuda'][2]:.6f} cpu={out['cpu'][2]:.6f} "
           f"grad_norm card={out['cuda'][3]:.6f} cpu={out['cpu'][3]:.6f} "
           f"worst grad rel_err={g_err:.3e} over {len(out['cpu'][0])} leaves, "
           f"one AdamW update worst rel_err={p_err:.3e} tol={MODEL_TOL} -> "
           f"{'ok' if ok else 'FAIL'} [{gpu}]")
     if not ok:
-        raise AssertionError("training gradients differ between the card and the CPU")
+        raise AssertionError(f"{name}: training gradients differ between the card and the CPU")
+
+
+def short_train(dev, gpu, name, layers, dense, B, S, accum, optimizer=None,
+                steps=SHORT_STEPS):
+    """``name`` at full width cut to ``layers`` layers (``dense`` of them
+    dense, MTP off) in bfloat16 with its optimizer (or ``optimizer``) and
+    full remat: ``steps`` steps of ``accum`` microbatches on one batch of
+    B x S random tokens (audio: [B, K, S]) through ``make_train_step``, the
+    kernels' launches checked exactly, the loss finite and falling."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import TrainState, make_train_step, opt_config
+
+    cfg = cut_config(name, layers=layers, dense=dense)
+    cfg = dataclasses.replace(cfg, grad_accum=accum, optimizer=optimizer or cfg.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, SEED, device=dev)
+    if cfg.moe is not None and cfg.moe.first_k_dense == cfg.num_layers:
+        # a cut that keeps no MoE layer still gets one unstacked MoE layer from
+        # init_params (stacked=0 means no layer axis); nothing reads it, and
+        # its optimizer state would not fit the card
+        params["moe_layers"] = {}
+    state = TrainState(params, init_opt_state(params, opt_config(cfg)),
+                       torch.zeros((), dtype=torch.int32))
+    step_fn = make_train_step(cfg, peak_lr=SHORT_LR, warmup_steps=1, total_steps=steps)
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    shape = (B, cfg.num_codebooks, S) if cfg.modality == "audio" else (B, S)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)}
+    reset_engine_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = train_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: short {name} {cut_text(cfg)} {cfg.dtype} {cfg.optimizer} lr={SHORT_LR} "
+          f"B={B} S={S} "
+          f"{steps} steps loss " + " ".join(f"{x:.4f}" for x in losses)
+          + f" step p50 {statistics.median(times[1:]) * 1e3:.1f} ms (first "
+          f"{times[0] * 1e3:.1f}) max_memory_allocated={peak:.2f} GiB [{gpu}]")
+    check_train_launches(f"short {name}", cfg, steps, counts)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    del params, state, step_fn, batch
+    free_card()
 
 
 def train_resume(gpu):
@@ -2826,73 +3114,49 @@ def train_resume(gpu):
         raise AssertionError("the restored run does not resume identically")
 
 
-def train_phase(dev, gpu):
-    """The training slice on the card: B4-bwd against its plain version and
-    timed; qwen1.5-0.5b at full width (bfloat16, AdamW, loss_chunk 512,
-    full remat) for ``TRAIN_STEPS`` steps through
-    ``repro_torch.launch.train.main`` on ``ShardedLoader`` at global batch
-    8 x 512, with B4's forward and backward launches counted over the run
-    and checked exactly (per step: 24 forward + 24 recomputed forward, 24
-    backward calls of 3 kernels), one step profiled; the card against the
-    CPU at 2 layers; a checkpoint restart. Returns (B4-bwd launches on the
-    train run, worst error, its figures at the train shape)."""
-    import math
-
-    import torch
-
-    from repro_torch.data.loader import ShardedLoader
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.launch.train import main as train_main
-    from repro_torch.training.train_loop import make_train_step
-
-    t_phase = time.perf_counter()
-    err, figures = flash_bwd_checks(dev, gpu)
+def train_phase(dev, gpu, extra=False):
+    """The training slice on the card: B4-bwd and B5-bwd against their plain
+    versions and timed; qwen1.5-0.5b (``TRAIN_STEPS`` steps) and
+    mamba2-1.3b (``SSM_TRAIN_STEPS``) at full width through
+    ``repro_torch.launch.train.main`` with their launches checked exactly
+    (qwen a step: 24 B4 + 24 recomputed, 24 backward calls of 3 kernels;
+    mamba2: 48 B5 + 48 recomputed, 48 backward calls of 6), one step of each
+    profiled; the card against the CPU at ``GRAD_CUTS``; a checkpoint
+    restart; the ``SHORT_RUNS`` (with ``extra`` also ``EXTRA_SHORT_RUNS``).
+    Returns ({kernel: launches on its full-width run}, {kernel: worst
+    error}, {kernel: figures at its train shape}) for the two backward
+    kernels."""
+    clock = PhaseClock()
+    errs, figures = {}, {}
+    errs["flash_attention_bwd"], figures["flash_attention_bwd"] = flash_bwd_checks(dev, gpu)
+    errs["ssd_scan_bwd"], figures["ssd_scan_bwd"] = ssd_bwd_checks(dev, gpu)
     free_card()
-    torch.cuda.reset_peak_memory_stats()
-    report = {}
-    fk.reset_launches()
-    losses = train_main(["--arch", LLM, "--steps", str(TRAIN_STEPS), "--global-batch",
-                         str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
-                         "--seed", str(SEED), "--log-every", "10"], report=report)
-    fwd, bwd = fk.launches, fk.bwd_launches
-    cfg = report["cfg"]
-    n_layers = cfg.num_layers
-    want_fwd = 2 * n_layers * TRAIN_STEPS if cfg.remat else n_layers * TRAIN_STEPS
-    want_bwd = BWD_KERNELS_PER_CALL * n_layers * TRAIN_STEPS
-    steady = report["step_s"][2:]
-    p50 = statistics.median(steady) * 1e3
-    uniform = math.log(cfg.vocab_size)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train: {LLM} full width ({n_layers} x {cfg.d_model}, vocab {cfg.vocab_size}) "
-          f"{cfg.dtype} AdamW loss_chunk={cfg.loss_chunk} remat={cfg.remat_policy} "
-          f"{TRAIN_STEPS} steps B={TRAIN_BATCH} S={TRAIN_SEQ} lr={TRAIN_LR}: step p50 "
-          f"{p50:.2f} ms (first {report['step_s'][0] * 1e3:.1f} ms) "
-          f"tokens/s={TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3):.0f} loss first={losses[0]:.4f} "
-          f"last={losses[-1]:.4f} ln V={uniform:.4f} max_memory_allocated={peak:.2f} GiB "
-          f"[{gpu}]")
-    print(f"train: launches over {TRAIN_STEPS} steps flash_attention={fwd} (want {want_fwd}: "
-          f"{n_layers} + {n_layers} recomputed a step) flash_attention_bwd={bwd} (want "
-          f"{want_bwd}: {n_layers} calls x {BWD_KERNELS_PER_CALL} kernels a step)")
-    if fwd != want_fwd or bwd != want_bwd:
-        raise AssertionError("the train run did not launch B4 and its backward as counted")
-    # the stream's bigrams cannot be learned from 123k tokens at V = 151936, and
-    # random unit-variance logits start ~0.5 above ln V: 30 steps show the loss
-    # falling, not reaching below ln V (PERF.md, Findings)
-    print(f"train: loss fell {losses[0] - losses[-1]:.4f} (min {min(losses):.4f}); "
-          f"last below ln V: {'yes' if losses[-1] < uniform else 'no'}")
-    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
-        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
-    step_fn = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=3, total_steps=TRAIN_STEPS)
-    batch = next(ShardedLoader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1))
-    profile_train_step(step_fn, report.pop("state"), batch, gpu)
-    report.clear()
-    free_card()
-    train_grads_vs_cpu(dev, gpu)
-    free_card()
+    clock.lap("train: backward checks and times")
+    launches = {"flash_attention_bwd": train_full(gpu, LLM, TRAIN_STEPS)["flash_attention_bwd"],
+                "ssd_scan_bwd": train_full(gpu, SSM_LLM, SSM_TRAIN_STEPS)["ssd_scan_bwd"]}
+    clock.lap("train: full-width runs")
+    for name, layers, S in GRAD_CUTS:
+        train_grads_vs_cpu(dev, gpu, name, layers, S)
     train_resume(gpu)
     free_card()
-    print(f"train: phase {time.perf_counter() - t_phase:.1f} s [{gpu}]")
-    return bwd, err, figures
+    clock.lap("train: card against CPU and restart")
+    for run in SHORT_RUNS + (EXTRA_SHORT_RUNS if extra else []):
+        short_train(dev, gpu, *run)
+    clock.lap("train: short runs")
+    return launches, errs, figures
+
+
+class PhaseClock:
+    """``phase:`` lines: the wall seconds of each phase of the run."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        print(f"phase: {name} {now - self.t:.1f} s (run so far {now - self.t0:.1f} s)",
+              flush=True)
+        self.t = now
 
 
 def main() -> int:
@@ -2923,9 +3187,11 @@ def main() -> int:
                     help="only the HTTP gateway: B1 and B3/B4 built, the encoder and the "
                          "qwen1.5-0.5b engine, the gateway: and serve: lines, then stop")
     ap.add_argument("--train-only", action="store_true",
-                    help="only the training slice: B4 and its backward built, the train: "
-                         "lines (B4-bwd checks and times, qwen1.5-0.5b trained at full width, "
-                         "card against CPU gradients, a checkpoint restart), then stop")
+                    help="only the training slice: B4, B5 and their backward kernels built, "
+                         "the train: lines (B4-bwd and B5-bwd checks and times, qwen1.5-0.5b "
+                         "and mamba2-1.3b trained at full width, card against CPU gradients, "
+                         "a checkpoint restart, the short runs of every other family), then "
+                         "stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -2935,6 +3201,11 @@ def main() -> int:
         print(f"chip_smoke: {args.src}/repro_torch is not there", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.src.resolve()))
+    if args.train_only:
+        # the extra short runs' largest state (llama4's 4.27 B-parameter MoE
+        # layer) left 26.5 GB reserved in fragments the optimizer could not
+        # use; growable segments are read at the first CUDA allocation
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -2946,6 +3217,7 @@ def main() -> int:
     from repro_torch.serving.engine import ModelBackend
 
     full_fp32()  # reference comparisons run in full float32 (no TF32)
+    clock = PhaseClock()
     dev = torch.device("cuda")
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
@@ -2953,8 +3225,9 @@ def main() -> int:
     build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
               else "ssd" if args.ssd_only else "sharded" if args.sharded_only
               else "gateway" if args.gateway_only else "train" if args.train_only else None)
+    clock.lap("build")
     if args.train_only:
-        train_phase(dev, gpu)
+        train_phase(dev, gpu, extra=True)
         print(f"train-only: done [{gpu}]")
         return 0
     if args.sharded_only or args.gateway_only:
@@ -3039,10 +3312,12 @@ def main() -> int:
     times["decode_attention"] = attn_times["decode", ENGINE_SEQ]  # the engine's decode step
     times["ssd_scan"] = ssd_times(dev, gpu)[PROMPT]  # the SSM engine's prefill
     torch.cuda.empty_cache()
+    clock.lap("kernel checks and times")
     model_check(dev)
     model_check(dev, SSM_LLM)
     arch_models(dev)
     free_card()
+    clock.lap("model lines")
     engine = engine_phase(dev, gpu)
     engine_long_phase(dev, gpu, engine.params, engine.cfg)
     torch.cuda.empty_cache()
@@ -3050,6 +3325,7 @@ def main() -> int:
     ssm_engine = engine_phase(dev, gpu, SSM_LLM, lengths=(2, 32, 12, 27, 9, 20))
     ssm_long_phase(dev, gpu, ssm_engine.params, ssm_engine.cfg)
     torch.cuda.empty_cache()
+    clock.lap("qwen1.5 and mamba2 engines")
     # the main path: the qwen1.5-0.5b and mamba2-1.3b engines' replays (the
     # JSON line's launches), then qwen3-8b's and zamba2-7b's, each engine
     # built (with its engine: lines) when its replay starts
@@ -3059,20 +3335,28 @@ def main() -> int:
     del backends
     torch.cuda.empty_cache()
     launches["similarity_topk"] = store_phase(enc, dev, gpu, queries)
+    clock.lap("main path replays and store")
     # the sharded read path, with the qwen engine behind its replay, then the
     # HTTP gateway over the main path, before the MoE phases' host copies
     sharded_phase(dev, gpu, enc, engine)
+    clock.lap("sharded read")
     gateway_phase(dev, gpu, enc, engine, inproc_p50)
     del engine, ssm_engine, enc
     free_card()
+    clock.lap("gateway and serve")
     arch_rest(dev, gpu)
     free_card()
-    launches["flash_attention_bwd"], errs["flash_attention_bwd"], times["flash_attention_bwd"] \
-        = train_phase(dev, gpu)
+    clock.lap("other engines")
+    train_launches_, train_errs, train_times = train_phase(dev, gpu)
+    launches.update(train_launches_)
+    errs.update(train_errs)
+    times.update(train_times)
+    clock.lap("training")
     # the MoE models last: their float32 lines copy up to 56 GB to the host,
     # and the host-bound lines above (engine:, traffic:, read:) run before
     # that, in the same order and state as before these phases were added
     moe_slice(dev, gpu)
+    clock.lap("MoE models")
     print("kernels: " + " ".join(f"{k} launches={v}" for k, v in launches.items()))
     figures = []
     for name, source, replaces in (
@@ -3087,6 +3371,7 @@ def main() -> int:
         ("ssd_scan", "ssd_scan/csrc/ssd_scan.cu", "ssd_scan/kernel.py:75"),
         ("flash_attention_bwd", "flash_attention/csrc/flash_attention_bwd.cu",
          "flash_attention/kernel.py:98"),
+        ("ssd_scan_bwd", "ssd_scan/csrc/ssd_scan_bwd.cu", "ssd_scan/kernel.py:75"),
     ):
         t = times[name]
         figures.append({

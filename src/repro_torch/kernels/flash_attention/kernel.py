@@ -27,8 +27,8 @@ forward launches the kernel and keeps each row's log-sum-exp (``lse``
 launches ``flash_attention_bwd_cuda``: the three kernels of
 ``csrc/flash_attention_bwd.cu`` (rowsum(dO o), then dK/dV and dQ apart,
 without atomics, so a gradient is the same bits every run; bfloat16 on
-the tensor cores by mma.sync, float32 on scalar FP32 FMAs), at
-``BWD_HEAD_DIMS``. ``flash_attention_bwd_plain`` is their plain version,
+the tensor cores by mma.sync, float32 on scalar FP32 FMAs), at every width
+the forward takes. ``flash_attention_bwd_plain`` is their plain version,
 the explicit formula in float32. The reference has no such kernel: it
 trains through jnp attention that XLA differentiates.
 """
@@ -43,7 +43,6 @@ from repro_torch.kernels.build import CudaLibrary, require_sm90
 
 HEAD_DIMS = (16, 32, 64, 128, 224, 256)  # the head widths the CUDA kernel is built for
 WIDTH_PAIRS = ((192, 128),)  # (q/k, v) widths it is built for where they differ (MLA)
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # the head widths the backward kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # CUDA launches of the forward kernel (one per wrapper call on a CUDA tensor)
@@ -66,9 +65,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_dot.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    lib.flash_attention_bwd_dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    lib.flash_attention_bwd_dkdv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                                              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    lib.flash_attention_bwd_dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    lib.flash_attention_bwd_dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     for fn in (lib.flash_attention_bwd_dot, lib.flash_attention_bwd_dkdv,
                lib.flash_attention_bwd_dq):
@@ -90,6 +89,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"dtypes: q {q.dtype}, k {k.dtype}, v {v.dtype} (float32 or bfloat16)")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+
+
+def _check_widths(Dh: int, Dv: int) -> None:
+    """Raise on a width the kernels (forward and backward) are not built for:
+    a head width outside ``HEAD_DIMS`` or, where v's width differs from q's,
+    a pair outside ``WIDTH_PAIRS``."""
+    if Dv == Dh and Dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
+    if Dv != Dh and (Dh, Dv) not in WIDTH_PAIRS:
+        raise ValueError(f"head_dim pair (q/k {Dh}, v {Dv}) not in {WIDTH_PAIRS}")
 
 
 def _masked_scores(q, k, *, causal, window, softcap, scale):
@@ -187,10 +196,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0, scale=N
             raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernel")
     B, S, H, Dh = q.shape
     Dv = v.shape[3]
-    if Dv == Dh and Dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
-    if Dv != Dh and (Dh, Dv) not in WIDTH_PAIRS:
-        raise ValueError(f"head_dim pair (q/k {Dh}, v {Dv}) not in {WIDTH_PAIRS}")
+    _check_widths(Dh, Dv)
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
     scale = scale if scale is not None else Dh ** -0.5
@@ -209,18 +215,6 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0, scale=N
     return (o, lse) if return_lse else o
 
 
-def check_bwd(q, k, v) -> None:
-    """Raise, launching nothing, where the backward kernels do not take the
-    shapes: a head width outside ``BWD_HEAD_DIMS`` or a value width apart
-    from q's (MLA's (192, 128))."""
-    Dh, Dv = q.shape[-1], v.shape[-1]
-    if Dv != Dh or Dh not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention's backward kernel takes head widths {BWD_HEAD_DIMS} with v as "
-            f"wide as q, not (q/k {Dh}, v {Dv}); training at this width on the card is "
-            "ROADMAP queue A item A13b")
-
-
 def _launched(name: str, err: int) -> None:
     """Raise on a backward kernel's refused launch, else count it."""
     global bwd_launches
@@ -233,22 +227,23 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0, soft
                              scale=None):
     """Launch the three backward kernels on the current stream: rowsum(dO o)
     into a float32 [B, H, S] scratch, then dK/dV, then dQ. Takes what
-    ``flash_attention_cuda`` takes at ``BWD_HEAD_DIMS`` (v as wide as q),
-    with o and do [B, S, H, Dh] and lse [B, H, S] float32, all contiguous;
-    raises, launching nothing, on anything else. Returns (dq, dk, dv)."""
+    ``flash_attention_cuda`` takes, with o and do [B, S, H, Dv] and lse
+    [B, H, S] float32, all contiguous; raises, launching nothing, on
+    anything else. Returns (dq, dk, dv)."""
     _check(q, k, v)
     require_sm90(q, "flash_attention backward")
-    check_bwd(q, k, v)
     B, S, H, Dh = q.shape
-    KH = k.shape[2]
+    KH, Dv = k.shape[2], v.shape[3]
+    _check_widths(Dh, Dv)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be contiguous on {q.device}")
         if q.dtype == torch.bfloat16 and name != "lse" and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernels")
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+    if (o.shape != (B, S, H, Dv) or do.shape != o.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype):
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} {do.dtype} "
-                         f"must match q {tuple(q.shape)} {q.dtype}")
+                         f"must be [{B}, {S}, {H}, {Dv}] {q.dtype}")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{B}, {H}, {S}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
@@ -264,10 +259,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0, soft
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dd.data_ptr())
     _launched("rowsum", lib.flash_attention_bwd_dot(o.data_ptr(), do.data_ptr(), dd.data_ptr(),
-                                                    B, S, H, Dh, dt, stream))
+                                                    B, S, H, Dv, dt, stream))
     _launched("dK/dV", lib.flash_attention_bwd_dkdv(*ptrs, dk.data_ptr(), dv.data_ptr(), B, S,
-                                                     H, KH, Dh, dt, *mask))
-    _launched("dQ", lib.flash_attention_bwd_dq(*ptrs, dq.data_ptr(), B, S, H, KH, Dh, dt, *mask))
+                                                     H, KH, Dh, Dv, dt, *mask))
+    _launched("dQ", lib.flash_attention_bwd_dq(*ptrs, dq.data_ptr(), B, S, H, KH, Dh, Dv, dt,
+                                               *mask))
     return dq, dk, dv
 
 

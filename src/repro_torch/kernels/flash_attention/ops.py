@@ -4,9 +4,8 @@ TPU grid, ``interpret``/``use_kernel`` pick a Pallas backend). The tensor's
 device picks the Hopper kernel (CUDA) or its plain version (CPU) — see
 ``kernel.py``. Where autograd records the call (grad enabled and an input
 that requires it), a CUDA tensor goes through ``FlashAttentionFn``, the
-forward kernel paired with the backward kernels, and raises at a width the
-backward does not take; a CPU tensor's plain version is differentiated by
-autograd itself."""
+forward kernel paired with the backward kernels; a CPU tensor's plain
+version is differentiated by autograd itself."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +20,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
         return _kernel.flash_attention_plain(q, k, v, causal=causal, window=window,
                                              softcap=softcap, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        _kernel.check_bwd(q, k, v)
         return _kernel.FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale)
     return _kernel.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                         scale=scale)

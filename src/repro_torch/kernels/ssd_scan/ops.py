@@ -4,10 +4,10 @@ backend). The tensor's device picks the Hopper kernel (CUDA) or its plain
 version (CPU) — see ``kernel.py``. ``Bm``/``Cm`` may carry G groups shared
 by H // G heads each, as well as one row per head (G = H).
 
-The kernel has no backward yet: where autograd would record the call on a
-CUDA tensor (grad enabled and an input that requires it), the wrapper
-raises rather than run the plain version on the card. On the CPU autograd
-differentiates the plain version."""
+Where autograd records the call (grad enabled and an input that requires
+it), a CUDA tensor goes through ``SsdScanFn``, the forward kernel paired
+with the backward kernels; a CPU tensor's plain version is differentiated
+by autograd itself."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +21,5 @@ def ssd_scan(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
     if x.device.type == "cpu":
         return _kernel.ssd_scan_plain(x, Bm, Cm, dt, A, D, chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, dt, A, D)):
-        raise NotImplementedError(
-            "the ssd_scan kernel has no backward yet: SSM and hybrid training on the card is "
-            "ROADMAP queue A item A13b (train on the CPU with device='cpu')")
+        return _kernel.SsdScanFn.apply(x, Bm, Cm, dt, A, D, chunk)
     return _kernel.ssd_scan_cuda(x, Bm, Cm, dt, A, D, chunk=chunk)

@@ -1,7 +1,8 @@
 """CUDA legs of the port's tests: each Hopper kernel against its plain
 version on the card (similarity_topk lanes B1 and its single-store form B2,
 decode attention B3, flash attention B4 (with MLA's value width too), the
-SSD chunked scan B5), the wrappers' refusals, the read path through the
+SSD chunked scan B5, and the backward kernels of B4 and B5), the
+wrappers' refusals, the read path through the
 kernel against the same read through the plain search, the MoE FFN's
 routing on the card against the CPU's, and the serving engines (dense,
 SSM and MoE) on the card against their CPU runs.
@@ -871,6 +872,10 @@ BWD_CASES = [
     (1, 129, 4, 1, 32, 0, 50.0, True),  # a softcap
     (1, 100, 4, 2, 64, 30, 20.0, False),  # non-causal, window and softcap
     (2, 1, 2, 1, 64, 0, 0.0, True),
+    (1, 300, 4, 2, 224, 0, 0.0, True),  # zamba2's shared-attention width, ragged S
+    (1, 257, 4, 2, 256, 64, 0.0, True),  # gemma3's width, a window
+    (1, 130, 4, 4, 256, 0, 30.0, False),  # non-causal with a softcap
+    (1, 200, 4, 4, 192, 0, 0.0, True, 128),  # MLA's (q/k 192, v 128)
 ]
 # the worst error over the largest value, or over 1 where every value is
 # smaller (at S = 1 the exact dq and dk are 0 and both sides rounding noise)
@@ -878,10 +883,12 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def _bwd_inputs(case, dt, dev, seed=20):
+    """q, k, v, dO; v and dO case[8] wide where the case has a value width."""
     B, S, H, KH, Dh = case[:5]
+    Dv = case[8] if len(case) > 8 else Dh
     q = _randn((B, S, H, Dh), dt, dev, seed)
-    k, v = _randn((B, S, KH, Dh), dt, dev, seed + 1), _randn((B, S, KH, Dh), dt, dev, seed + 2)
-    do = _randn((B, S, H, Dh), dt, dev, seed + 3)
+    k, v = _randn((B, S, KH, Dh), dt, dev, seed + 1), _randn((B, S, KH, Dv), dt, dev, seed + 2)
+    do = _randn((B, S, H, Dv), dt, dev, seed + 3)
     return q, k, v, do
 
 
@@ -893,9 +900,9 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_lse_matches_plain(case, dt, dev):
     """The forward's optional row log-sum-exp on every route the backward
-    reads (float32 scalar, bf16 mma.sync at 16/32, wgmma at 64/128); the
-    output is the one written without it."""
-    window, cap, causal = case[5:]
+    reads (float32 scalar, bf16 mma.sync at 16/32, wgmma at 64 to 256 and at
+    (192, 128)); the output is the one written without it."""
+    window, cap, causal = case[5:8]
     q, k, v, _ = _bwd_inputs(case, dt, dev)
     opts = dict(causal=causal, window=window, softcap=cap)
     o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
@@ -910,8 +917,10 @@ def test_flash_lse_matches_plain(case, dt, dev):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(case, dt, dev):
     """dq, dk, dv of the three backward launches against the plain formula
-    on the same inputs (the kernel's own o and lse)."""
-    window, cap, causal = case[5:]
+    on the same inputs (the kernel's own o and lse), at every width the
+    forward takes: 32-row float32 tiles and two column slices on the
+    tensor cores above 128."""
+    window, cap, causal = case[5:8]
     q, k, v, do = _bwd_inputs(case, dt, dev)
     opts = dict(causal=causal, window=window, softcap=cap)
     o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
@@ -960,32 +969,36 @@ def test_flash_autograd_on_the_card_matches_the_cpu(dt, dev):
 
 
 def test_training_refuses_widths_without_a_backward(dev):
-    """Under grad on the card, B4 at a width its backward does not take and
-    B5 (no backward yet) raise before launching anything; without grad the
-    same calls serve."""
+    """Under grad on the card, B4 at the widths whose backward came last
+    (Dh 256 and MLA's (192, 128)) and B5 now launch their backward kernels:
+    one forward launch and three B4-bwd (six B5-bwd) kernels each, finite
+    gradients of the inputs' shapes; without grad the same calls serve."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     q = _randn((1, 64, 2, 256), torch.bfloat16, dev, 30).requires_grad_()
-    before = fk.launches
-    with pytest.raises(NotImplementedError, match="A13b"):
-        flash_attention(q, q.detach(), q.detach())
     qm = _randn((1, 64, 2, 192), torch.bfloat16, dev, 31).requires_grad_()
     vm = _randn((1, 64, 2, 128), torch.bfloat16, dev, 32)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        flash_attention(qm, qm.detach(), vm)
-    assert fk.launches == before
+    for args in ((q, q.detach(), q.detach()), (qm, qm.detach(), vm)):
+        before = (fk.launches, fk.bwd_launches)
+        flash_attention(*args).float().sum().backward()
+        torch.cuda.synchronize()
+        assert (fk.launches - before[0], fk.bwd_launches - before[1]) == (1, 3)
+        assert args[0].grad.shape == args[0].shape and bool(torch.isfinite(args[0].grad).all())
     with torch.no_grad():
+        before = fk.launches
         flash_attention(q, q, q)
     assert fk.launches == before + 1
     x = _randn((1, 32, 2, 64), torch.float32, dev, 33).requires_grad_()
     bm = _randn((1, 32, 1, 16), torch.float32, dev, 34)
     dt_ = torch.full((1, 32, 2), 0.1, device=dev)
     a = -torch.ones(2, device=dev)
-    before = sk.launches
-    with pytest.raises(NotImplementedError, match="A13b"):
-        ssd_scan(x, bm, bm, dt_, a, torch.ones(2, device=dev))
-    assert sk.launches == before
+    before = (sk.launches, sk.bwd_launches)
+    y, _ = ssd_scan(x, bm, bm, dt_, a, torch.ones(2, device=dev))
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (sk.launches - before[0], sk.bwd_launches - before[1]) == (1, sk.BWD_KERNELS)
+    assert bool(torch.isfinite(x.grad).all())
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(dev):
@@ -1000,3 +1013,106 @@ def test_flash_bwd_refuses_what_it_does_not_take(dev):
         fk.flash_attention_bwd_cuda(q, k, v, o, lse, do.transpose(1, 2).contiguous()
                                     .transpose(1, 2))
     assert fk.bwd_launches == before
+
+
+# --- B5's gradient: the SSD scan's backward kernels ---
+
+SSD_BWD_CASES = [
+    # B, S, H, G, P, N, chunk
+    (2, 512, 64, 1, 64, 128, 256),  # mamba2-1.3b's training shape, cut in batch: two chunks
+    (1, 512, 112, 2, 64, 64, 256),  # zamba2-7b's
+    (1, 200, 8, 1, 64, 128, 256),  # a single chunk
+    (1, 300, 8, 2, 64, 128, 256),  # a ragged last chunk
+    (2, 130, 4, 4, 16, 24, 64),  # P = 16, N = 24, G = H, three chunks, ragged
+    (1, 100, 4, 2, 128, 32, 32),  # P = 128, four chunks
+    (1, 1, 4, 1, 32, 16, 64),  # S = 1
+]
+# the worst error over each gradient's largest value (or 1 where all are smaller)
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_bwd_inputs(case, dt_, dev, seed=40):
+    B, S, H, G, P, N, _ = case
+    args = _ssd_inputs(B, S, H, G, P, N, dt_, dev, seed)
+    dy = _randn((B, S, H, P), dt_, dev, seed + 1)
+    dstate = _randn((B, H, P, N), torch.float32, dev, seed + 2)
+    return args, dy, dstate
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["dstate0", "dstate"])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dt_", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain(case, dt_, with_state, dev):
+    """dx, dBm, dCm, ddt, dA, dD of the backward kernels against the plain
+    phases on the same inputs, in the inputs' dtypes, with and without a
+    final-state gradient."""
+    args, dy, dstate = _ssd_bwd_inputs(case, dt_, dev)
+    dstate = dstate if with_state else None
+    before = sk.bwd_launches
+    got = sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=case[-1])
+    want = sk.ssd_scan_bwd_plain(*args, dy, dstate, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert sk.bwd_launches == before + sk.BWD_KERNELS
+    for name, a, b in zip(("dx", "dBm", "dCm", "ddt", "dA", "dD"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= SSD_BWD_TOL[dt_], (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("case", [SSD_BWD_CASES[0], SSD_BWD_CASES[3], SSD_BWD_CASES[4]])
+@pytest.mark.parametrize("dt_", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_is_bitwise_repeatable(case, dt_, dev):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args, dy, dstate = _ssd_bwd_inputs(case, dt_, dev, seed=50)
+    a = sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=case[-1])
+    b = sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_ssd_bwd_refuses_what_it_does_not_take(dev):
+    args, dy, dstate = _ssd_bwd_inputs((1, 64, 4, 1, 64, 32, 32), torch.float32, dev)
+    x, Bm, Cm, dt, A, D = args
+    before = sk.bwd_launches
+    with pytest.raises(ValueError, match="P=48"):
+        sk.ssd_scan_bwd_cuda(x[..., :48].contiguous(), Bm, Cm, dt, A, D,
+                             dy[..., :48].contiguous())
+    big = _randn((1, 64, 1, 300), torch.float32, dev, 60)
+    with pytest.raises(ValueError, match="N <= 256"):
+        sk.ssd_scan_bwd_cuda(x, big, big, dt, A, D, dy)
+    with pytest.raises(ValueError, match="dy"):
+        sk.ssd_scan_bwd_cuda(*args, dy.bfloat16())
+    with pytest.raises(TypeError, match="dstate"):
+        sk.ssd_scan_bwd_cuda(*args, dy, dstate.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_scan_bwd_cuda(*args, dy.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.ssd_scan_bwd_cuda(*(t.cpu() for t in args), dy.cpu())
+    wide = _randn((1, 64, 4, 128), torch.float32, dev, 61)
+    n256 = _randn((1, 64, 1, 256), torch.float32, dev, 62)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sk.ssd_scan_bwd_cuda(wide, n256, n256, dt, A, D, wide, chunk=256)
+    assert sk.bwd_launches == before  # a refused call launches nothing
+
+
+@pytest.mark.parametrize("dt_", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_on_the_card_matches_the_cpu(dt_, dev):
+    """``ops.ssd_scan`` under autograd on the card (SsdScanFn: one forward
+    launch, the backward's six kernels) against autograd through the plain
+    version on the CPU, with the final state used as well as y."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    case = (1, 300, 8, 2, 64, 32, 128)
+    args, dy, dstate = _ssd_bwd_inputs(case, dt_, dev, seed=70)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(where).detach().requires_grad_() for t in args]
+        before = (sk.launches, sk.bwd_launches)
+        y, st = ssd_scan(*leaves, chunk=case[-1])
+        ((y.float() * dy.to(where).float()).sum() + (st * dstate.to(where)).sum()).backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert (sk.launches - before[0], sk.bwd_launches - before[1]) == (1, sk.BWD_KERNELS)
+        grads[where] = [t.grad for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert a.dtype == b.dtype and _rel_err(a.cpu(), b) <= SSD_BWD_TOL[dt_]
