@@ -5,7 +5,8 @@ vision, audio, SSM, hybrid and MoE models).
 
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
-                           | --moe-only | --sharded-only | --gateway-only | --train-only]
+                           | --moe-only | --sharded-only | --gateway-only | --train-only
+                           | --bwd-only]
                           [--src DIR]
 
 It builds the port's five CUDA libraries from the sources in this checkout
@@ -112,7 +113,8 @@ for B4's; qwen1.5-0.5b (30 steps) and mamba2-1.3b (20 steps) at full
 width, 8 x 512 tokens through ``launch.train.main``: step p50, tokens/s,
 the first and last loss against ln V, peak memory, the kernels' and
 their backward's launches checked exactly, one step each profiled;
-qwen's and mamba2's 2-layer cuts and zamba2-7b's one group, gradients
+qwen's and mamba2's 2-layer cuts and zamba2-7b's first Mamba2 block with
+one application of its shared attention, gradients
 and one AdamW update on the card against the CPU in float32; a
 checkpoint restart against an uninterrupted run; short bf16 runs of
 zamba2-7b's group, gemma3-4b's first 6 layers and deepseek-v3's 2 dense
@@ -144,7 +146,10 @@ and B3/B4 built, the qwen1.5-0.5b engine for the replay),
 build and engine; the wire's cost against ``traffic:`` is then not
 printed), ``--train-only`` only the ``train:`` lines (B4, B5 and their
 backward kernels built) and short runs of qwen3-8b, gemma2-27b, llava,
-musicgen and llama4-scout besides, and
+musicgen and llama4-scout besides, ``--bwd-only`` only the backward
+kernels' ``train: check`` and ``time:`` lines (B4 and both backward
+libraries built; each backward ``time:`` line gives the minimum, median
+and maximum of three traces beside its median ``kernel_ms``), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -255,6 +260,22 @@ def device_trace(fn, bound_ms, iters=20, warmup=3, traces=3, per_call=None):
           + ("" if per_call is None else f" with {per_call:g} kernels a call")
           + f"; CUDA events behind a spin kernel read {ms:.4f} ms")
     return ms, None, None
+
+
+def trace_spread(fn, bound_ms, per_call=None, n=3):
+    """``device_trace`` ``n`` times over: (the median of their per-call ms,
+    kernels a call and each kernel's ms from the reading nearest that
+    median, (min, median, max) of the readings), so that a time that
+    swings from one reading to the next shows as such."""
+    reads = [device_trace(fn, bound_ms, per_call=per_call) for _ in range(n)]
+    ms = sorted(r[0] for r in reads)
+    med = statistics.median(ms)
+    near = min(reads, key=lambda r: abs(r[0] - med))
+    return med, near[1], near[2], (ms[0], med, ms[-1])
+
+
+def spread_text(spread):
+    return "/".join(f"{t:.4f}" for t in spread)
 
 
 def device_ms(fn, bound_ms, iters=20, warmup=3, traces=3, per_call=None):
@@ -459,8 +480,9 @@ def kernel_times(kern, dev, gpu):
 def build_all(only=None):
     """One nvcc per CUDA source, all started together; prints each
     library's build time. ``only`` = "attention", "topk", "ssd", "train"
-    (B4, B5 and their backward kernels), or "sharded" or "gateway" (B1/B2 and B3/B4)
-    builds those kernels' libraries alone."""
+    (B4, B5 and their backward kernels), "bwd" (B4 and both backward
+    kernels), or "sharded" or "gateway" (B1/B2 and B3/B4) builds those
+    kernels' libraries alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -475,7 +497,8 @@ def build_all(only=None):
 
     libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
             "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB],
-            "train": [fk.LIB, fk.LIB_BWD, sk.LIB, sk.LIB_BWD]}.get(
+            "train": [fk.LIB, fk.LIB_BWD, sk.LIB, sk.LIB_BWD],
+            "bwd": [fk.LIB, fk.LIB_BWD, sk.LIB_BWD]}.get(
         only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB, fk.LIB_BWD, sk.LIB_BWD])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
@@ -2675,9 +2698,14 @@ SSD_BWD_CASES = [
     ("float32 zamba2 ragged", 1, 300, 112, 2, 64, 64, 256, "float32", False),
 ]
 SSD_BWD_TOL = {"float32": SSD_TOL, "bfloat16": BF16_TOL}  # over each gradient's largest value
-# the card-vs-CPU gradient lines: (model, layers, S), float32, B = 1; S past
-# one 256-step chunk, so that the second chunk is ragged
-GRAD_CUTS = [(LLM, 2, 128), (SSM_LLM, 2, 300), ("zamba2-7b", 6, 260)]
+# the card-vs-CPU gradient lines: (model, layers, S, pattern), float32, B =
+# 1; S past one 256-step chunk, so that the second chunk is ragged. zamba2
+# keeps one full-width Mamba2 block and one application of its Dh-224
+# shared attention (a group of one, one shared block): its first group of
+# six blocks and both shared blocks (1.12 B parameters) made the CPU's side
+# most of the phase
+GRAD_CUTS = [(LLM, 2, 128, {}), (SSM_LLM, 2, 300, {}),
+             ("zamba2-7b", 1, 260, {"hybrid_period": 1, "num_shared_blocks": 1})]
 # short bf16 runs at full width cut in depth: (model, layers, dense layers,
 # B, S, microbatches a step); one microbatch holds the optimizer state and
 # one set of bf16 gradients, where the configs' float32 accumulation of 8
@@ -2727,7 +2755,6 @@ def flash_bwd_checks(dev, gpu):
     device ms and its bound. Returns (worst abs error, the figures of the
     phase's own shape)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
 
@@ -2756,33 +2783,66 @@ def flash_bwd_checks(dev, gpu):
             raise AssertionError(f"B4's backward disagrees with its plain version: {label}")
         worst = max(worst, err)
         bound, by = flash_bwd_bound(B, S, H, KH, Dh, w, dt, Dv)
-        k_ms = device_ms(lambda: fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts), bound,
-                         per_call=BWD_KERNELS_PER_CALL)
+        k_ms, _, each, spread = trace_spread(
+            lambda: fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts), bound,
+            per_call=BWD_KERNELS_PER_CALL)
         p_ms = device_ms(lambda: fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts),
                          bound, iters=3)
-        # the library's backward: SDPA's autograd graph, run again and again
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        if w:
-            pos = torch.arange(S, device=dev)
-            sdpa = dict(attn_mask=(pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w))
-        else:
-            sdpa = dict(is_causal=True)
+        # the library's backward: SDPA's autograd graph, run again and again,
+        # under each of its backends that takes the case, the fastest kept
+        # (which one PyTorch picks on its own depends on the process's state:
+        # its cuDNN backend read ~1.6x faster than its flash backend here)
         l_ms, lib = None, "n/a (no softcap)"
         if not cap:  # SDPA has no softcap
-            ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KH != H, **sdpa)
-            dot = do.transpose(1, 2)
-            l_ms = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                         retain_graph=True), bound)
-            lib = f"{l_ms:.4f}"
+            l_ms, name = sdpa_bwd_ms(q, k, v, do, w, bound)
+            lib = f"{l_ms:.4f} ({name})"
         print(f"time: flash_attention_bwd {label} {dt_name} B={B} S={S} H={H} KH={KH} {widths} "
-              f"window={w} softcap={cap} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"window={w} softcap={cap} kernel_ms={k_ms:.4f} "
+              f"kernel_ms_min/median/max={spread_text(spread)} plain_ms={p_ms:.4f} "
               f"library_ms={lib} bound_ms={bound:.4f} ({by}) share_of_bound={bound / k_ms:.4f} "
-              f"kernels_per_call={BWD_KERNELS_PER_CALL} [{gpu}]")
+              f"kernels_per_call={BWD_KERNELS_PER_CALL} kernel_ms_each="
+              f"{'n/a' if each is None else '/'.join(f'{t:.4f}' for t in each)} "
+              f"[{gpu}]")
         if first is None:
             first = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
-        del q, k, v, o, lse, do, got, want, qt, kt, vt
+        del q, k, v, o, lse, do, got, want
         torch.cuda.empty_cache()
     return worst, first
+
+
+def sdpa_bwd_ms(q, k, v, do, window, bound):
+    """Device ms of SDPA's backward (its autograd graph, causal, the window
+    as a mask) under the fastest of its backends that takes the case (the
+    math backend takes them all), and that backend's name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if window:
+        pos = torch.arange(S, device=q.device)
+        kw = dict(attn_mask=(pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window))
+    else:
+        kw = dict(is_causal=True)
+    dot = do.transpose(1, 2)
+    best = None
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):  # MATH takes every case
+        try:
+            with sdpa_kernel(backend):
+                ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    enable_gqa=k.shape[2] != q.shape[2], **kw)
+            ms = device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                           bound)
+        except RuntimeError:  # this backend does not take the case
+            continue
+        if best is None or ms < best[0]:
+            best = (ms, backend.name.lower())
+        del ot
+    if best is None:
+        raise AssertionError("no SDPA backend takes the case")
+    return best
 
 
 def ssd_bwd_flops(S, H, G, P, N, L):
@@ -2854,19 +2914,43 @@ def ssd_bwd_checks(dev, gpu):
             raise AssertionError(f"B5's backward disagrees with its plain version: {label}")
         worst = max(worst, err)
         bound, by = ssd_bwd_bound(B, S, H, G, P, N, chunk, dt, with_state)
-        k_ms, kernels, each = device_trace(kernel, bound, per_call=sk.BWD_KERNELS)
+        plan = ssd_bwd_plan(sk, B, S, H, G, P, N, chunk, dt)
+        k_ms, kernels, each, spread = trace_spread(kernel, bound, per_call=sk.BWD_KERNELS)
         p_ms = device_ms(lambda: sk.ssd_scan_bwd_plain(*args, dy, dstate, chunk=chunk), bound,
                          iters=3)
         print(f"time: ssd_scan_bwd {label} {dt_name} {shape} kernel_ms={k_ms:.4f} "
+              f"kernel_ms_min/median/max={spread_text(spread)} "
               f"cuda_kernels_per_call={'n/a' if kernels is None else f'{kernels:g}'} "
               f"kernel_ms_each={'n/a' if each is None else '/'.join(f'{t:.4f}' for t in each)} "
               f"plain_ms={p_ms:.4f} library_ms=none bound_ms={bound:.4f} ({by}) "
-              f"share_of_bound={bound / k_ms:.4f} [{gpu}]")
+              f"share_of_bound={bound / k_ms:.4f} "
+              + ("" if plan is None else
+                 f"heads_per_block={plan[0]} stages={plan[2]} tile_smem={plan[3]} "
+                 f"route={('refused', 'tensor cores', 'fp32 fma')[plan[6]]} ")
+              + f"[{gpu}]")
         if first is None:
             first = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bound, bound_by=by)
         del args, dy, dstate, got, want
         torch.cuda.empty_cache()
     return worst, first
+
+
+def ssd_bwd_plan(sk, B, S, H, G, P, N, chunk, dt):
+    """The library's own plan of a backward call on this device
+    (``ssd_scan_bwd_plan``): heads a tile block, head slices a group, ring
+    stages, the tile and chunk-sum kernels' shared memory, the workspace
+    bytes and the tile kernels' route (1 tensor cores, 2 float32 FMAs);
+    None for a library without it (an older tree, ``--src``)."""
+    import ctypes
+
+    lib = sk.LIB_BWD.load()
+    if not hasattr(lib, "ssd_scan_bwd_plan"):
+        return None
+    out = (ctypes.c_longlong * 7)()
+    err = lib.ssd_scan_bwd_plan(B, S, H, G, P, N, min(chunk, S), sk.DTYPES[dt], out)
+    if err:
+        raise AssertionError(f"ssd_scan_bwd_plan failed: {err}")
+    return tuple(out)
 
 
 def train_launches():
@@ -2987,11 +3071,13 @@ def train_full(gpu, name, steps):
     return counts
 
 
-def train_grads_vs_cpu(dev, gpu, name=LLM, layers=2, S=128):
-    """``name`` cut to ``layers`` layers at full width, float32 with TF32
-    off (``full_fp32``), one microbatch of B = 1 x ``S``: every gradient leaf
-    and one AdamW update on the card against the same on the CPU, from the
-    same weights and batch, with the card's kernel launches counted."""
+def train_grads_vs_cpu(dev, gpu, name=LLM, layers=2, S=128, pattern=None):
+    """``name`` cut to ``layers`` layers at full width (and, for a hybrid,
+    the group ``pattern``: hybrid_period, num_shared_blocks), float32 with
+    TF32 off (``full_fp32``), one microbatch of B = 1 x ``S``: every
+    gradient leaf and one AdamW update on the card against the same on the
+    CPU, from the same weights and batch, with the card's kernel launches
+    counted."""
     import dataclasses
 
     import torch
@@ -3001,7 +3087,8 @@ def train_grads_vs_cpu(dev, gpu, name=LLM, layers=2, S=128):
     from repro_torch.training.optimizer import adamw_update, init_opt_state, tree_leaves
     from repro_torch.training.train_loop import _microbatch_grads, opt_config
 
-    cfg = dataclasses.replace(cut_config(name, layers=layers, dtype="float32"), grad_accum=1)
+    cfg = dataclasses.replace(cut_config(name, layers=layers, dtype="float32"), grad_accum=1,
+                              **(pattern or {}))
     params = _tree_to(T.init_params(cfg, SEED, device=dev), torch.device("cpu"))
     batch = {"tokens": torch.from_numpy(ShardedLoader(cfg.vocab_size, 1, S, seed=SEED)
                                         ._batch_at(0))}
@@ -3023,7 +3110,8 @@ def train_grads_vs_cpu(dev, gpu, name=LLM, layers=2, S=128):
     p_err = max(_rel_err(a, b) for a, b in zip(out["cuda"][1], out["cpu"][1]))
     l_err = abs(out["cuda"][2] - out["cpu"][2])
     ok = g_err <= MODEL_TOL and p_err <= MODEL_TOL and l_err <= MODEL_TOL
-    print(f"train: card-vs-cpu {name} {cut_text(cfg)} float32 (TF32 off) B=1 S={S} "
+    cut = cut_text(cfg) + "".join(f" {k}={v}" for k, v in (pattern or {}).items())
+    print(f"train: card-vs-cpu {name} {cut} float32 (TF32 off) B=1 S={S} "
           f"loss card={out['cuda'][2]:.6f} cpu={out['cpu'][2]:.6f} "
           f"grad_norm card={out['cuda'][3]:.6f} cpu={out['cpu'][3]:.6f} "
           f"worst grad rel_err={g_err:.3e} over {len(out['cpu'][0])} leaves, "
@@ -3135,8 +3223,8 @@ def train_phase(dev, gpu, extra=False):
     launches = {"flash_attention_bwd": train_full(gpu, LLM, TRAIN_STEPS)["flash_attention_bwd"],
                 "ssd_scan_bwd": train_full(gpu, SSM_LLM, SSM_TRAIN_STEPS)["ssd_scan_bwd"]}
     clock.lap("train: full-width runs")
-    for name, layers, S in GRAD_CUTS:
-        train_grads_vs_cpu(dev, gpu, name, layers, S)
+    for name, layers, S, pattern in GRAD_CUTS:
+        train_grads_vs_cpu(dev, gpu, name, layers, S, pattern)
     train_resume(gpu)
     free_card()
     clock.lap("train: card against CPU and restart")
@@ -3192,6 +3280,10 @@ def main() -> int:
                          "and mamba2-1.3b trained at full width, card against CPU gradients, "
                          "a checkpoint restart, the short runs of every other family), then "
                          "stop")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="only the two backward kernels: B4 and both backward libraries "
+                         "built, the train: check and time: lines of B4-bwd and B5-bwd, "
+                         "then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -3224,8 +3316,16 @@ def main() -> int:
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
     build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
               else "ssd" if args.ssd_only else "sharded" if args.sharded_only
-              else "gateway" if args.gateway_only else "train" if args.train_only else None)
+              else "gateway" if args.gateway_only else "train" if args.train_only
+              else "bwd" if args.bwd_only else None)
     clock.lap("build")
+    if args.bwd_only:
+        flash_bwd_checks(dev, gpu)
+        free_card()
+        ssd_bwd_checks(dev, gpu)
+        clock.lap("train: backward checks and times")
+        print(f"bwd-only: done [{gpu}]")
+        return 0
     if args.train_only:
         train_phase(dev, gpu, extra=True)
         print(f"train-only: done [{gpu}]")

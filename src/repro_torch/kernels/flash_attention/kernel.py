@@ -27,10 +27,11 @@ forward launches the kernel and keeps each row's log-sum-exp (``lse``
 launches ``flash_attention_bwd_cuda``: the three kernels of
 ``csrc/flash_attention_bwd.cu`` (rowsum(dO o), then dK/dV and dQ apart,
 without atomics, so a gradient is the same bits every run; bfloat16 on
-the tensor cores by mma.sync, float32 on scalar FP32 FMAs), at every width
-the forward takes. ``flash_attention_bwd_plain`` is their plain version,
-the explicit formula in float32. The reference has no such kernel: it
-trains through jnp attention that XLA differentiates.
+the tensor cores, by wgmma over a ring of cp.async tiles at widths 64 to
+256 and (192, 128) and by mma.sync at 16 and 32; float32 on scalar FP32
+FMAs), at every width the forward takes. ``flash_attention_bwd_plain`` is
+their plain version, the explicit formula in float32. The reference has
+no such kernel: it trains through jnp attention that XLA differentiates.
 """
 from __future__ import annotations
 

@@ -25,11 +25,12 @@ passed across chunks in a float32 workspace, the outputs).
 
 The gradient. ``SsdScanFn`` is the kernel under autograd: its forward
 launches ``ssd_scan_cuda`` and keeps the inputs, its backward launches
-``ssd_scan_bwd_cuda``, the six kernels of ``csrc/ssd_scan_bwd.cu`` (FP32
-FMAs, no atomics, so a gradient is the same bits every run).
-``ssd_scan_bwd_plain`` is their plain version, ``bwd_phases`` in float32,
-phase for phase. The reference has no such kernel: it trains through its
-jnp scan, which XLA differentiates.
+``ssd_scan_bwd_cuda``, the six kernels of ``csrc/ssd_scan_bwd.cu`` (tensor
+cores with bf16 operand parts, a block per slice of a group's heads, no
+atomics, so a gradient is the same bits every run; the library's
+``ssd_scan_bwd_plan`` says how a call runs). ``ssd_scan_bwd_plain`` is their plain version, ``bwd_phases`` in
+float32, phase for phase. The reference has no such kernel: it trains
+through its jnp scan, which XLA differentiates.
 """
 from __future__ import annotations
 
@@ -143,6 +144,9 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan_bwd_workspace_bytes
     fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_longlong
+    fn = lib.ssd_scan_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -358,7 +362,7 @@ def ssd_scan_bwd_cuda(x, Bm, Cm, dt, A, D, dy, dstate=None, *, chunk: int = 128)
     [B, S, H, P] in x's dtype and dstate [B, H, P, N] float32 or None, all
     contiguous; raises, launching nothing, on anything else (``RuntimeError``
     where the tiles of (P, N, chunk) do not fit shared memory). Allocates the
-    gradients and a float32 workspace. Returns (dx, dBm, dCm, ddt, dA, dD)."""
+    gradients and the workspace. Returns (dx, dBm, dCm, ddt, dA, dD)."""
     global bwd_launches
     _check(x, Bm, Cm, dt, A, D, chunk)
     require_sm90(x, "ssd_scan backward")

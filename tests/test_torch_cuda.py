@@ -918,8 +918,9 @@ def test_flash_lse_matches_plain(case, dt, dev):
 def test_flash_bwd_kernel_matches_plain(case, dt, dev):
     """dq, dk, dv of the three backward launches against the plain formula
     on the same inputs (the kernel's own o and lse), at every width the
-    forward takes: 32-row float32 tiles and two column slices on the
-    tensor cores above 128."""
+    forward takes: 32-row float32 tiles above 128, and on the tensor cores
+    mma.sync at 16 and 32, wgmma from 64 (one warpgroup a dK/dV block up to
+    128, two above, a cluster of blocks under GQA)."""
     window, cap, causal = case[5:8]
     q, k, v, do = _bwd_inputs(case, dt, dev)
     opts = dict(causal=causal, window=window, softcap=cap)
@@ -1116,3 +1117,154 @@ def test_ssd_autograd_on_the_card_matches_the_cpu(dt_, dev):
         grads[where] = [t.grad for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert a.dtype == b.dtype and _rel_err(a.cpu(), b) <= SSD_BWD_TOL[dt_]
+
+
+# --- the redesigned backward kernels: every width and mask, the planners ---
+
+BWD_WIDTHS = [(16, 16), (32, 32), (64, 64), (128, 128), (224, 224), (256, 256), (192, 128)]
+BWD_MASKS = {  # (window, softcap, causal)
+    "causal": (0, 0.0, True), "window": (48, 0.0, True), "softcap": (0, 30.0, True),
+    "noncausal-window-softcap": (40, 20.0, False),
+}
+
+
+@pytest.mark.parametrize("S", [100, 257])
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+@pytest.mark.parametrize("widths", BWD_WIDTHS, ids=[f"{a}x{b}" for a, b in BWD_WIDTHS])
+def test_flash_bwd_every_width_and_mask(widths, mask, S, dev):
+    """The bf16 routes (mma.sync at 16 and 32, wgmma with its rings at 64
+    and up) against the plain formula at every width, under each mask, at a
+    ragged S, with GQA; three launches a call."""
+    Dh, Dv = widths
+    window, cap, causal = BWD_MASKS[mask]
+    case = (1, S, 4, 2, Dh, window, cap, causal) + ((Dv,) if Dv != Dh else ())
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, dev, seed=80)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True, **opts)
+    before = fk.bwd_launches
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fk.bwd_launches == before + 3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= BWD_TOL[torch.bfloat16], (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("widths", BWD_WIDTHS, ids=[f"{a}x{b}" for a, b in BWD_WIDTHS])
+def test_flash_bwd_every_width_is_bitwise_repeatable(widths, dev):
+    Dh, Dv = widths
+    case = (2, 300, 8, 2, Dh, 0, 0.0, True) + ((Dv,) if Dv != Dh else ())
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, dev, seed=81)
+    o, lse = fk.flash_attention_cuda(q, k, v, return_lse=True)
+    a = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    b = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+SSD_BWD_SWEEP = [(P, N) for P in (16, 32, 64, 128) for N in (64, 128, 256)]
+SSD_BWD_MODES = {  # (B, S, H, G, chunk, with dstate)
+    "one-chunk-dstate": (1, 200, 8, 1, 256, True),
+    "ragged-groups": (1, 300, 8, 2, 128, False),
+    "zamba2-heads": (1, 130, 112, 2, 64, True),
+}
+
+
+def _ssd_bwd_plan(B, S, H, G, P, N, chunk, dt_):
+    """The library's own plan of a backward call on this device: (heads a
+    tile block, head slices a group, ring stages, tile and chunk-sum
+    kernels' shared memory, workspace bytes, route: 1 tensor cores, 2
+    float32 FMAs, 0 refused)."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 7)()
+    lib = sk.LIB_BWD.load()
+    assert lib.ssd_scan_bwd_plan(B, S, H, G, P, N, min(chunk, S), sk.DTYPES[dt_], out) == 0
+    return tuple(out)
+
+
+@pytest.mark.parametrize("mode", list(SSD_BWD_MODES))
+@pytest.mark.parametrize("pn", SSD_BWD_SWEEP, ids=[f"P{p}-N{n}" for p, n in SSD_BWD_SWEEP])
+def test_ssd_bwd_every_width(pn, mode, dev):
+    """The bf16 route at every tile width (P 16/32/64/128 in tiles of 64 or
+    128, N in tiles of 64/128/256), one chunk with dstate, a ragged last
+    chunk with G = 2, zamba2's H = 112 over G = 2 with slices of heads; the
+    float32 route at the same widths, on the tensor cores where its tiles
+    fit and on FMAs at N 256 (P <= 64) and at P 128 / N 128; the one shape
+    neither fits (float32 at P 128 / N 256) refused before a launch."""
+    P, N = pn
+    B, S, H, G, chunk, with_state = SSD_BWD_MODES[mode]
+    for dt_ in (torch.bfloat16, torch.float32):
+        args = _ssd_inputs(B, S, H, G, P, N, dt_, dev, seed=90)
+        dy = _randn((B, S, H, P), dt_, dev, 91)
+        dstate = _randn((B, H, P, N), torch.float32, dev, 92) if with_state else None
+        before = sk.bwd_launches
+        route = _ssd_bwd_plan(B, S, H, G, P, N, chunk, dt_)[6]
+        want_route = 1 if dt_ == torch.bfloat16 or (N <= 128 and (P <= 64 or N <= 64)) else \
+            0 if (P, N) == (128, 256) else 2
+        assert route == want_route, (dt_, route)
+        if route == 0:
+            with pytest.raises(RuntimeError, match="shared memory"):
+                sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+            assert sk.bwd_launches == before
+            continue
+        got = sk.ssd_scan_bwd_cuda(*args, dy, dstate, chunk=chunk)
+        want = sk.ssd_scan_bwd_plain(*args, dy, dstate, chunk=chunk)
+        torch.cuda.synchronize()
+        assert sk.bwd_launches == before + sk.BWD_KERNELS
+        for name, a, b in zip(("dx", "dBm", "dCm", "ddt", "dA", "dD"), got, want):
+            assert a.dtype == b.dtype and bool(torch.isfinite(a).all()), name
+            assert _rel_err(a, b) <= SSD_BWD_TOL[dt_], (name, dt_, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("pn", SSD_BWD_SWEEP, ids=[f"P{p}-N{n}" for p, n in SSD_BWD_SWEEP])
+def test_ssd_bwd_every_width_is_bitwise_repeatable(pn, dev):
+    P, N = pn
+    args = _ssd_inputs(2, 300, 8, 2, P, N, torch.bfloat16, dev, seed=93)
+    dy = _randn((2, 300, 8, P), torch.bfloat16, dev, 94)
+    a = sk.ssd_scan_bwd_cuda(*args, dy, chunk=128)
+    b = sk.ssd_scan_bwd_cuda(*args, dy, chunk=128)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ssm_train_shapes():
+    """(label, B, S, H, G, P, N, chunk) of every SSM and hybrid config, full
+    and smoke: the training shape (8 x 512), one chunk and a ragged one."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+
+    out = []
+    for cfg in (get_config(n, smoke=s) for n in ARCH_NAMES for s in (False, True)):
+        if cfg.ssm is None:
+            continue
+        m = cfg.ssm
+        H = cfg.d_inner // m.headdim
+        for B, S in ((8, 512), (1, m.chunk_size + 5), (1, min(200, m.chunk_size))):
+            out.append((f"{cfg.name}-{m.d_state}-{S}", B, S, H, m.ngroups, m.headdim, m.d_state,
+                        m.chunk_size))
+    return out
+
+
+SSM_TRAIN_SHAPES = _ssm_train_shapes()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSM_TRAIN_SHAPES, ids=[s[0] for s in SSM_TRAIN_SHAPES])
+def test_ssd_bwd_plan_fits_every_ssm_config(shape, dt, dev):
+    """Every SSM/hybrid config's backward runs on this device by the
+    library's own plan: on the tensor cores (bf16 always), its tile kernels'
+    shared memory within the device's limit."""
+    _, B, S, H, G, P, N, chunk = shape
+    hb, nsl, stages, tiles, sums, ws, route = _ssd_bwd_plan(B, S, H, G, P, N, chunk, dt)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert route in (1, 2) and (route == 1 or dt == torch.float32)
+    assert 0 < tiles <= limit and 0 < sums <= limit and ws > 0
+    assert hb * nsl == H // G and (stages > 0) == (route == 1)
+
+
+def test_ssd_bwd_plan_at_mamba2_train_shape(dev):
+    """mamba2-1.3b's training shape: 8 heads a block, a two-stage ring in
+    107 KB (two blocks share an SM), tensor cores."""
+    hb, nsl, stages, tiles, _, _, route = _ssd_bwd_plan(8, 512, 64, 1, 64, 128, 256,
+                                                        torch.bfloat16)
+    assert (hb, nsl, stages, tiles, route) == (8, 8, 2, 109696, 1)
