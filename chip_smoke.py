@@ -6,7 +6,7 @@ vision, audio, SSM, hybrid and MoE models).
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
                            | --moe-only | --sharded-only | --gateway-only | --train-only
-                           | --bwd-only]
+                           | --bwd-only | --mesh-only]
                           [--src DIR]
 
 It builds the port's five CUDA libraries from the sources in this checkout
@@ -125,8 +125,16 @@ host-bound line above: ``moe:`` per MoE model and token count (one
 full-width MoE layer in float32, card against CPU: expert flips above a
 1e-4 score gap, drop fractions, outputs), their ``model:`` lines (cut to
 2 layers, and to 1 dense + 1 MoE layer), their ``engine:`` and
-``profile:`` lines and an ``engine: ... ModelBackend`` line each,
-``kernels:`` (launches per kernel on the main path), then a JSON line of
+``profile:`` lines and an ``engine: ... ModelBackend`` line each; the
+model on a mesh: ``mesh:`` lines (the same full-width float32 MoE layers
+in their expert-parallel form under ``use_mesh``, llama4-scout over
+(1, 4) and (2, 4) data x model and deepseek-v3 over (1, 16), every
+position on the card, against the local path; and llama4-scout cut to 2
+layers, prefill and 2 decode steps under the (1, 4) mesh against the same
+without it, B3/B4 launches exact) and ``dryrun:`` lines (the dry run of
+qwen1.5-0.5b x decode_32k and of the cache lookup on the single-pod mesh,
+on ``meta``, against the card's memory); ``kernels:`` (launches per kernel
+on the main path), then a JSON line of
 kernel figures, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``; a ``phase:`` line after each phase
 gives its wall seconds.
@@ -149,7 +157,9 @@ backward kernels built) and short runs of qwen3-8b, gemma2-27b, llava,
 musicgen and llama4-scout besides, ``--bwd-only`` only the backward
 kernels' ``train: check`` and ``time:`` lines (B4 and both backward
 libraries built; each backward ``time:`` line gives the minimum, median
-and maximum of three traces beside its median ``kernel_ms``), and
+and maximum of three traces beside its median ``kernel_ms``),
+``--mesh-only`` only the ``moe:``, ``mesh:`` and ``dryrun:`` lines (B3/B4
+built), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -2591,8 +2601,163 @@ def moe_checks(dev, gpu):
                   f"{'ok' if ok else 'FAIL'} [{gpu}]")
             if not ok:
                 raise AssertionError(f"the MoE layer on the card disagrees with the CPU: {name}")
+        mesh_layer_lines(name, cfg, p_dev, dev, gpu)
         del p_dev, p_cpu
         free_card()
+
+
+# the mesh: lines' meshes over ("data", "model") for each MoE model's layer
+MESH_LAYER_MESHES = {MOE_ARCHS[0]: ((1, 4), (2, 4)), MOE_ARCHS[1]: ((1, 16),)}
+
+
+def mesh_layer_lines(name, cfg, p_dev, dev, gpu):
+    """``mesh:`` lines: the full-width float32 MoE layer ``p_dev`` of
+    ``moe_checks`` in its expert-parallel form (``moe_ffn`` under
+    ``use_mesh``), every mesh position on this card, at ``MOE_TOKENS``
+    tokens split over the ``data`` rows. Held to the local path on the
+    card: with data = 1 the outputs within ``MODEL_TOL`` and the drop
+    fraction equal; with data = 2 the local path run on each batch half,
+    and the mean of the halves' drop fractions. Expert flips: tokens whose
+    experts differ between each batch shard's routing and the whole
+    batch's where the top-k score gap exceeds 1e-4 (limit 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+
+    mo, D = cfg.moe, cfg.d_model
+    rng = np.random.default_rng(SEED + 17)
+    for shape in MESH_LAYER_MESHES[name]:
+        data, n_model = shape
+        mesh = make_test_mesh(shape, ("data", "model"), device=dev)
+        for T in MOE_TOKENS:
+            t0 = time.perf_counter()
+            x = torch.as_tensor(rng.standard_normal((data, T // data, D)).astype(np.float32),
+                                device=dev)
+            with use_mesh(mesh):
+                y, m = moe.moe_ffn(p_dev, cfg, x)
+            local = [moe.moe_ffn(p_dev, cfg, x[i:i + 1]) for i in range(data)]
+            want = torch.cat([yl for yl, _ in local])
+            drops = [ml["moe_drop_fraction"] for _, ml in local]
+            want_drop = drops[0] if data == 1 else (drops[0] + drops[1]) / 2
+            flat = x.reshape(-1, D)
+            whole, _ = moe._route(p_dev, cfg, flat)
+            per_shard = torch.cat([moe._route(p_dev, cfg, x[i])[0] for i in range(data)])
+            logits = flat @ p_dev["router"]
+            scores = (torch.sigmoid(logits) + p_dev["router_bias"] if "router_bias" in p_dev
+                      else torch.softmax(logits, -1))
+            top = torch.sort(scores, -1, descending=True).values
+            decided = (top[:, mo.top_k - 1] - top[:, mo.top_k]) > 1e-4
+            flips = int((decided & (whole != per_shard).any(-1)).sum())
+            err = float((y - want).abs().max())
+            drop, drop_want = float(m["moe_drop_fraction"]), float(want_drop)
+            ok = (err <= MODEL_TOL and drop == drop_want and flips == 0
+                  and bool(torch.isfinite(y).all()))
+            print(f"mesh: {name} layer float32 mesh=data{data}xmodel{n_model} "
+                  f"({data * n_model} positions on this card) T={T} "
+                  f"experts_per_position={mo.num_experts // n_model} "
+                  f"capacity={moe.capacity_of(cfg, T // data)} against the local path"
+                  f"{' per batch half' if data > 1 else ''}: max_abs_err={err:.3e} "
+                  f"tol={MODEL_TOL} drop_fraction mesh={drop:.6f} local={drop_want:.6f} "
+                  f"expert_flips={flips} (gap > 1e-4; limit 0) "
+                  f"{time.perf_counter() - t0:.1f} s -> {'ok' if ok else 'FAIL'} [{gpu}]")
+            if not ok:
+                raise AssertionError(f"the MoE layer's mesh form disagrees: {name} {shape}")
+
+
+def mesh_model_line(dev, gpu, steps=2):
+    """``mesh: llama4 model``: llama4-scout cut to 2 layers in float32, one
+    32-token prefill and ``steps`` teacher-forced decode steps under
+    ``use_mesh`` over (1, 4) data x model on this card, against the same
+    without the mesh: logits within ``MODEL_TOL``, no greedy flip where the
+    top-2 gap exceeds 2e-3, and the B4/B3 launches of the mesh run (counts
+    set to 0 just before, read just after) exactly ``expected_launches``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    name = MOE_ARCHS[0]
+    cfg = cut_config(name, 2, 0, "float32")
+    params = T.init_params(cfg, SEED, device=dev)
+    mesh = make_test_mesh((1, 4), ("data", "model"), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, PROMPT + steps)), device=dev)
+    runs, launches = [], None
+    for ctx in (contextlib.nullcontext(), use_mesh(mesh)):
+        cache = T.init_cache(cfg, 1, ENGINE_SEQ, device=dev)
+        torch.cuda.synchronize()
+        reset_engine_launches()
+        with ctx:
+            logits, _ = T.prefill(params, cfg, {"tokens": toks[:, :PROMPT]}, cache)
+            out = [logits]
+            for i in range(steps):
+                pos = torch.tensor([PROMPT + i], device=dev)
+                logits, _ = T.decode_step(params, cfg, toks[:, PROMPT + i:PROMPT + i + 1], pos,
+                                          cache)
+                out.append(logits)
+        torch.cuda.synchronize()
+        launches = engine_launches()
+        runs.append(out)
+        del cache
+    worst, flips = 0.0, 0
+    for got, want in zip(runs[1], runs[0]):
+        worst = max(worst, float((got - want).abs().max()))
+        top2 = torch.topk(want, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2e-3
+        flips += int((decided & (got.argmax(-1) != want.argmax(-1))).sum())
+    want_launches = expected_launches(cfg, 1, steps)
+    finite = all(bool(torch.isfinite(x).all()) for x in runs[1])
+    ok = worst <= MODEL_TOL and flips == 0 and finite and launches == want_launches
+    print(f"mesh: llama4 model {name} float32 {cut_text(cfg)} mesh=data1xmodel4 (4 positions "
+          f"on this card) prefill S={PROMPT} + {steps} decode steps against the same without "
+          f"the mesh: max_abs_logit_err={worst:.3e} tol={MODEL_TOL} greedy_flips={flips} "
+          f"finite={finite} launches under the mesh={launches} expected={want_launches} "
+          f"{time.perf_counter() - t0:.1f} s -> {'ok' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("the model under the mesh disagrees with the model without it")
+    del params
+    free_card()
+
+
+def dryrun_lines(gpu):
+    """``dryrun:`` lines: ``launch.dryrun`` in this process for
+    qwen1.5-0.5b x decode_32k on the single-pod (16, 16) mesh and for the
+    cache lookup, on ``meta`` (nothing computed on the card): bytes per
+    device against the card's memory, FLOPs per device and collective
+    bytes. The dry run's ``HBM_PER_CHIP`` must be this card's
+    ``total_memory`` where the card is the one it names."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    mesh = make_production_mesh()
+    recs = [D.lower_cell(LLM, "decode_32k", mesh), D.lower_cache_lookup(mesh)]
+    for rec in recs:
+        coll = {k: int(v) for k, v in rec["collective_bytes_per_device"].items()}
+        print(f"dryrun: {rec['arch']} x {rec['shape']} mesh={rec['mesh']} "
+              f"devices={rec['devices']} kind={rec['kind']} on meta: "
+              f"bytes_per_device={rec['bytes_per_device']} memory={rec['memory']} "
+              f"fits_hbm={rec['fits_hbm']} (HBM_PER_CHIP={D.HBM_PER_CHIP}) "
+              f"flops_per_device={rec['cost']['flops']:.6e} collectives={coll}")
+    same_card = torch.cuda.get_device_name(0) == D.HBM_CARD
+    ok = all("error" not in r and r["bytes_per_device"] > 0 for r in recs) and (
+        total == D.HBM_PER_CHIP or not same_card)
+    print(f"dryrun: card total_memory={total} ({torch.cuda.get_device_name(0)}) "
+          f"dry run's HBM_PER_CHIP={D.HBM_PER_CHIP} ({D.HBM_CARD}) "
+          f"{time.perf_counter() - t0:.1f} s -> {'ok' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("the dry run failed or its HBM_PER_CHIP is not this card's memory")
 
 
 def moe_models(dev):
@@ -2643,7 +2808,8 @@ def moe_slice(dev, gpu, checks=False):
     """The MoE models' lines: with ``checks`` (``--moe-only``) first B4 at
     (192, 128) and B3/B4 at llama4's shapes against their plain versions and
     timed (the default run has them among its own checks and times), then
-    ``moe:``, ``model:``, ``engine:`` and ``profile:``."""
+    ``moe:`` with the ``mesh:`` layer lines, ``model:``, ``engine:``,
+    ``profile:``, the ``mesh:`` model line and the ``dryrun:`` lines."""
     if checks:
         attention_checks(dev, MOE_FLASH_CASES, MOE_DECODE_CASES, FLASH_PAIR_CASES, split=False)
         attention_times(dev, gpu, [t for t in FLASH_TIMES if t[0].split()[0] in MOE_ARCHS],
@@ -2651,6 +2817,8 @@ def moe_slice(dev, gpu, checks=False):
     moe_checks(dev, gpu)
     moe_models(dev)
     moe_engines(dev, gpu)
+    mesh_model_line(dev, gpu)
+    dryrun_lines(gpu)
 
 
 def arch_rest(dev, gpu):
@@ -3284,6 +3452,10 @@ def main() -> int:
                     help="only the two backward kernels: B4 and both backward libraries "
                          "built, the train: check and time: lines of B4-bwd and B5-bwd, "
                          "then stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only the model on a mesh: B3/B4 built, the moe: lines with the "
+                         "mesh: lines of the MoE layers' expert-parallel form, the mesh: "
+                         "llama4 model line and the dryrun: lines, then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -3314,7 +3486,8 @@ def main() -> int:
     gpu = smi()
     print(f"gpu: {gpu} torch={torch.__version__} cuda={torch.version.cuda} "
           f"capability={torch.cuda.get_device_capability(0)} src={args.src}")
-    build_all("attention" if args.attention_only or args.moe_only else "topk" if args.topk_only
+    build_all("attention" if args.attention_only or args.moe_only or args.mesh_only
+              else "topk" if args.topk_only
               else "ssd" if args.ssd_only else "sharded" if args.sharded_only
               else "gateway" if args.gateway_only else "train" if args.train_only
               else "bwd" if args.bwd_only else None)
@@ -3346,6 +3519,14 @@ def main() -> int:
             return 0
         sharded_phase(dev, gpu, enc, engine)
         print(f"sharded-only: done [{gpu}]")
+        return 0
+    if args.mesh_only:
+        moe_checks(dev, gpu)
+        clock.lap("moe: and mesh: layer lines")
+        mesh_model_line(dev, gpu)
+        dryrun_lines(gpu)
+        clock.lap("mesh: model and dryrun: lines")
+        print(f"mesh-only: done [{gpu}]")
         return 0
     if args.moe_only:
         moe_slice(dev, gpu, checks=True)

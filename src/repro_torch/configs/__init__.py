@@ -11,7 +11,13 @@ from repro_torch.configs import (
     qwen15_0_5b,
     zamba2_7b,
 )
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
+    ModelConfig,
+    ShapeSpec,
+    cells_for,
+)
 
 _MODULES = {
     "gemma3-4b": gemma3_4b,

@@ -6,12 +6,18 @@ keep the family mechanisms at tiny widths. Every family of the reference
 runs here (dense, MoE with MLA, SSM, hybrid, vision and audio) and trains
 (``max_seq_len``, ``remat``, ``remat_policy``, ``loss_chunk``,
 ``optimizer``, ``grad_accum``, and the parameter counts ``layer_kinds``,
-``total_params`` and ``active_params_per_token``). Left out are the TPU
-and mesh knobs (``use_pallas``, ``kernel_interpret``, ``topk_block_n``,
-``topk_grid_order``, ``attn_chunk``, ``unroll``, ``infer_params_tp_only``,
-``opt_pod_sharded``, ``gqa_repeat_kv``, ``kv_cache_dtype``): the tensor's
-device picks the kernel, the CUDA tiles are compile-time constants,
-attention always runs the kernels and layers are a Python loop.
+``total_params`` and ``active_params_per_token``). The two mesh-layout
+choices the dry run reads are kept: ``infer_params_tp_only`` (inference
+weights replicated over ``data``) and ``opt_pod_sharded`` (the moments
+sharded over ``pod`` too). Left out are the TPU programs' knobs
+(``use_pallas``, ``kernel_interpret``, ``topk_block_n``,
+``topk_grid_order``, ``attn_chunk``, ``unroll``, ``gqa_repeat_kv``,
+``kv_cache_dtype``): the tensor's device picks the kernel, the CUDA tiles
+are compile-time constants, attention always runs the kernels and layers
+are a Python loop.
+
+``SHAPES`` are the dry run's input shapes and ``cells_for`` the shapes
+each architecture runs there, as in the reference.
 """
 from __future__ import annotations
 
@@ -118,6 +124,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True  # recompute each layer's activations in backward
     remat_policy: str = "full"  # "full" (save nothing) | "dots" (save matmul outputs)
+    infer_params_tp_only: bool = False  # replicate params over `data` at inference (no FSDP AGs)
+    opt_pod_sharded: bool = False  # cross-pod ZeRO-1: shard optimizer state over `pod` too
     loss_chunk: int = 0  # chunk CE over the sequence axis; 0 = off
     optimizer: str = "adamw"  # "adamw" | "adamw8bit"
     grad_accum: int = 1  # microbatch count for train_step
@@ -190,3 +198,35 @@ class ModelConfig:
             n += mo.first_k_dense * dense + (n_layers - mo.first_k_dense) * per_moe
             return n + n_layers * self._attn_params()
         return n + self.active_params_per_token()
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the dry run (the reference's)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+# Archs allowed to run long_500k (sub-quadratic or bounded KV).
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "zamba2-7b", "gemma3-4b", "gemma2-27b")
+
+
+def cells_for(arch_name: str):
+    """The (shape) cells this arch runs in the dry run."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch_name in LONG_CONTEXT_ARCHS:
+        out.append("long_500k")
+    return out

@@ -102,47 +102,63 @@ def _check_widths(Dh: int, Dv: int) -> None:
         raise ValueError(f"head_dim pair (q/k {Dh}, v {Dv}) not in {WIDTH_PAIRS}")
 
 
-def _masked_scores(q, k, *, causal, window, softcap, scale):
-    """The plain versions' float32 scores [B, KH, G, S, S] after the scale
-    and softcap, tanh(scaled / softcap) (None without a softcap) and the
-    [S, S] mask of visible keys."""
-    B, S, H, Dh = q.shape
-    KH = k.shape[2]
-    qf = q.to(torch.float32).reshape(B, S, KH, H // KH, Dh)
+def _masked_scores(q, k, *, causal, window, softcap, scale, row0=0):
+    """The plain versions' float32 scores [B, KH, G, n, S] of q's n rows
+    (at sequence positions row0.., against all S keys) after the scale and
+    softcap, tanh(scaled / softcap) (None without a softcap) and the
+    [n, S] mask of visible keys."""
+    B, n, H, Dh = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(B, n, KH, H // KH, Dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32)) * scale
     t = None
     if softcap:
         t = torch.tanh(s / softcap)
         s = softcap * t
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    keys = torch.arange(S, device=q.device)[None, :]
+    rows = torch.arange(row0, row0 + n, device=q.device)[:, None]
+    mask = torch.ones((n, S), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[None, :] <= pos[:, None]
+        mask &= keys <= rows
     if window:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= keys > rows - window
     return s, t, mask
+
+
+PLAIN_BLOCK_Q = 1024  # the reference's attn_chunk
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
                           return_lse=False):
-    """Plain PyTorch version of the kernel: the [B, KH, G, S, S] score
-    matrix in float32, masks, softmax, PV in float32, zeros for a row with
-    no valid key. Same signature and result as the CUDA kernel; with
-    ``return_lse`` also each row's log-sum-exp [B, H, S] float32 (-inf for
-    a row with no valid key)."""
+    """Plain PyTorch version of the kernel: over blocks of
+    ``PLAIN_BLOCK_Q`` query rows (each row's softmax is its own, so the
+    blocks give the same rows; the live scores are one block's
+    [B, KH, G, block, S]), the float32 scores, masks, softmax, PV in
+    float32, zeros for a row with no valid key. Same signature and result
+    as the CUDA kernel; with ``return_lse`` also each row's log-sum-exp
+    [B, H, S] float32 (-inf for a row with no valid key). The dry run's
+    attention on ``meta``; autograd differentiates it."""
     _check(q, k, v)
     B, S, H, Dh = q.shape
     scale = scale if scale is not None else Dh ** -0.5
-    s, _, mask = _masked_scores(q, k, causal=causal, window=window, softcap=softcap,
-                                scale=scale)
-    s = s.masked_fill(~mask, float("-inf"))
-    w = torch.softmax(s, dim=-1)
-    w = torch.where(mask.any(-1, keepdim=True), w, 0.0)  # no valid key: zeros
-    o = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
-    o = o.reshape(B, S, H, v.shape[3]).to(q.dtype)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)  # once, not per block
+    outs, lses = [], []
+    for i in range(0, S, PLAIN_BLOCK_Q):
+        qb = q[:, i:i + PLAIN_BLOCK_Q]
+        s, _, mask = _masked_scores(qb, kf, causal=causal, window=window, softcap=softcap,
+                                    scale=scale, row0=i)
+        s = s.masked_fill(~mask, float("-inf"))
+        w = torch.softmax(s, dim=-1)
+        w = torch.where(mask.any(-1, keepdim=True), w, 0.0)  # no valid key: zeros
+        o = torch.einsum("bkgqs,bskd->bqkgd", w, vf)
+        outs.append(o.reshape(B, qb.shape[1], H, v.shape[3]))
+        if return_lse:
+            lses.append(torch.logsumexp(s, dim=-1))
+    o = (outs[0] if len(outs) == 1 else torch.cat(outs, 1)).to(q.dtype)
     if not return_lse:
         return o
-    return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    lse = lses[0] if len(lses) == 1 else torch.cat(lses, -1)
+    return o, lse.reshape(B, H, S)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0,

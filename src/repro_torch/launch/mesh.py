@@ -11,8 +11,15 @@ that card).
 
 Axes:
   pod   — the outer shard axis (a multi-pod deployment)
-  data  — the shard axis of a cache deployment
-  model — an axis the sharded read path does not shard over
+  data  — the shard axis of a cache deployment; data parallel and FSDP
+          for a model
+  model — tensor and expert parallel for a model (the sharded read path
+          does not shard over it)
+
+``make_production_mesh`` is the reference's production layout, (16, 16)
+or (2, 16, 16), with every position on the ``meta`` device: no host holds
+256 cards, and only the dry run (``launch/dryrun.py``), which computes
+shapes and counts and no values, reads it.
 """
 from __future__ import annotations
 
@@ -62,6 +69,14 @@ def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device: DeviceLike) -> 
     for i, d in enumerate(_positions(devs.size, device)):
         devs[i] = d
     return Mesh(devs.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
+    "data", "model") with ``multi_pod``; every position on ``meta``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, "meta")
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), *, device: DeviceLike = None) -> Mesh:

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import FSDP, TP
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
@@ -45,6 +46,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_angles,
     rotate,
+    stack_spec,
     zeros_init,
 )
 
@@ -72,6 +74,24 @@ def init_attn(gen, cfg, d_in: Optional[int] = None, stacked: int = 0, device=Non
         params["q_norm"] = ones_init((Dh,), **kw)
         params["k_norm"] = ones_init((Dh,), **kw)
     return params
+
+
+def attn_specs(cfg, stacked: int = 0) -> dict:
+    """``init_attn``'s spec tree: heads over ``TP``, the model width over
+    ``FSDP``."""
+    specs = {
+        "wq": stack_spec((FSDP, TP, None), stacked),
+        "wk": stack_spec((FSDP, TP, None), stacked),
+        "wv": stack_spec((FSDP, TP, None), stacked),
+        "wo": stack_spec((TP, None, FSDP), stacked),
+    }
+    if cfg.qkv_bias:
+        for name in ("bq", "bk", "bv"):
+            specs[name] = stack_spec((TP, None), stacked)
+    if cfg.qk_norm:
+        specs["q_norm"] = stack_spec((None,), stacked)
+        specs["k_norm"] = stack_spec((None,), stacked)
+    return specs
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -137,6 +157,14 @@ def init_attn_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def attn_cache_specs() -> dict:
+    """KV heads shard over ``model`` when it divides them (pass-1 primary);
+    otherwise the sequence axis picks up ``model`` (a pass-2 fallback), and
+    ``data`` where the batch cannot use it."""
+    spec = (("pod", "data"), ("data", "model"), TP, None)
+    return {"k": spec, "v": spec}
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V3 multi-head latent attention)
 # ---------------------------------------------------------------------------
@@ -159,6 +187,18 @@ def init_mla(gen, cfg, stacked: int = 0, device=None) -> dict:
         "wkv_b": dense_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
                             fan_in=m.kv_lora_rank, **kw),
         "wo": dense_init(gen, (H, m.v_head_dim, D), fan_in=H * m.v_head_dim, **kw),
+    }
+
+
+def mla_specs(stacked: int = 0) -> dict:
+    return {
+        "wq_a": stack_spec((FSDP, None), stacked),
+        "q_norm": stack_spec((None,), stacked),
+        "wq_b": stack_spec((FSDP, TP, None), stacked),
+        "wkv_a": stack_spec((FSDP, None), stacked),
+        "kv_norm": stack_spec((None,), stacked),
+        "wkv_b": stack_spec((FSDP, TP, None), stacked),
+        "wo": stack_spec((TP, None, FSDP), stacked),
     }
 
 
@@ -239,3 +279,10 @@ def init_mla_cache(cfg, batch: int, max_seq: int, device=None) -> dict:
     dt = param_dtype(cfg)
     return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dt, device=device),
             "kr": torch.zeros((batch, max_seq, m.qk_rope_head_dim), dtype=dt, device=device)}
+
+
+def mla_cache_specs() -> dict:
+    """The latent width over ``TP``; the sequence takes ``data`` where the
+    batch cannot use it."""
+    spec = (("pod", "data"), ("data",), TP)
+    return {"ckv": spec, "kr": spec}

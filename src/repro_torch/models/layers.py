@@ -8,6 +8,13 @@ logits are float32, everything else runs in the parameters' dtype.
 ``chunked_ce_loss`` walks the sequence in ``cfg.loss_chunk`` slices, each
 under ``torch.utils.checkpoint``, so neither the forward nor the backward
 holds more than one slice's [B, chunk, V] float32 logits.
+
+Each ``init_*`` has a ``*_specs`` twin giving the reference's spec tree
+for the same parameters: logical-axis tuples (``FSDP``, ``TP``, None)
+that ``distributed.sharding`` resolves against a mesh, with a replicated
+layer axis in front for a stacked leaf (``stack_spec``). On
+``device="meta"`` the initialisers draw nothing: they give each leaf its
+shape and dtype only (the port's ``jax.eval_shape``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import FSDP, TP
 
 F32 = torch.float32
 
@@ -42,11 +51,24 @@ def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
     std = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(((stacked,) if stacked else ()) + tuple(shape), dtype=dtype,
                       device=device)
+    if out.is_meta:  # shapes only: nothing to draw
+        return out
     for w in (out if stacked else (out,)):
         draw = torch.empty(tuple(shape), dtype=F32, device=device)
         torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -3.0, 3.0, generator=gen)
         w.copy_(draw * std)
     return out
+
+
+def stack_spec(spec: tuple, stacked: int) -> tuple:
+    """Prepend a replicated layer axis to a spec for stacked params."""
+    return ((None,) + tuple(spec)) if stacked else tuple(spec)
+
+
+def init_generator(dev: torch.device, seed: int):
+    """The initialisers' generator on ``dev``; None on ``meta``, where
+    nothing is drawn."""
+    return None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
 
 
 def zeros_init(shape, dtype=torch.bfloat16, stacked: int = 0, device=None) -> torch.Tensor:
@@ -143,6 +165,14 @@ def init_mlp(gen, d_in: int, d_ff: int, cfg, stacked: int = 0, device=None) -> d
     }
 
 
+def mlp_specs(cfg, stacked: int = 0) -> dict:
+    if cfg.mlp_gated:
+        return {"wi_gate": stack_spec((FSDP, TP), stacked),
+                "wi_up": stack_spec((FSDP, TP), stacked),
+                "wo": stack_spec((TP, FSDP), stacked)}
+    return {"wi": stack_spec((FSDP, TP), stacked), "wo": stack_spec((TP, FSDP), stacked)}
+
+
 def mlp(params, x, cfg):
     if "wi_gate" in params:
         h = activation(x @ params["wi_gate"], cfg.act) * (x @ params["wi_up"])
@@ -159,6 +189,10 @@ def mlp(params, x, cfg):
 def init_embedding(gen, vocab: int, d_model: int, cfg, device=None) -> dict:
     return {"table": dense_init(gen, (vocab, d_model), fan_in=d_model,
                                 dtype=param_dtype(cfg), device=device)}
+
+
+def embedding_specs(stacked: int = 0) -> dict:
+    return {"table": stack_spec((TP, FSDP), stacked)}
 
 
 def embed(params, tokens, cfg):

@@ -21,8 +21,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import FSDP, TP
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import dense_init, ones_init, param_dtype, rms_norm, zeros_init
+from repro_torch.models.layers import (
+    dense_init,
+    ones_init,
+    param_dtype,
+    rms_norm,
+    stack_spec,
+    zeros_init,
+)
 
 F32 = torch.float32
 FLOAT32_PARAMS = ("A_log", "dt_bias", "D")  # kept in float32 whatever the model's dtype
@@ -64,6 +72,21 @@ def init_ssm(gen: torch.Generator, cfg, stacked: int = 0, device=None) -> dict:
         "D": ones_init((H,), F32, stacked, device),
         "norm_w": ones_init((di,), dt, stacked, device),
         "out_proj": dense_init(gen, (di, d), dtype=dt, stacked=stacked, device=device),
+    }
+
+
+def ssm_specs(stacked: int = 0) -> dict:
+    """``init_ssm``'s spec tree: the inner width over ``TP``, the model
+    width over ``FSDP``, the per-head scalars replicated."""
+    return {
+        "in_proj": stack_spec((FSDP, TP), stacked),
+        "conv_w": stack_spec((TP, None), stacked),
+        "conv_b": stack_spec((TP,), stacked),
+        "A_log": stack_spec((None,), stacked),
+        "dt_bias": stack_spec((None,), stacked),
+        "D": stack_spec((None,), stacked),
+        "norm_w": stack_spec((TP,), stacked),
+        "out_proj": stack_spec((TP, FSDP), stacked),
     }
 
 
@@ -156,3 +179,7 @@ def init_ssm_cache(cfg, batch: int, device=None) -> dict:
         "ssm": torch.zeros((batch, cfg.ssm_heads, s.headdim, s.d_state), dtype=F32,
                            device=device),
     }
+
+
+def ssm_cache_specs() -> dict:
+    return {"conv": (("pod", "data"), None, TP), "ssm": (("pod", "data"), TP, None, None)}

@@ -24,6 +24,9 @@ at 2 * d_model with their "down" projection) in place of "layers"; moe
 
 API (the reference's names):
   init_params(cfg, seed=0, device=None)          -> params
+  param_specs(cfg), cache_specs(cfg)             -> the reference's spec trees
+                                                    (``init_params(...)[1]``,
+                                                    ``init_cache(...)[1]``)
   params_from_jax(params_np, cfg, device=None)   -> params
   init_cache(cfg, batch, max_seq, device=None)   -> dense/vlm/audio/moe: {"k", "v"}: [n, B, S, KH, Dh]
                                                     MLA: {"ckv": [n, B, S, kv_lora_rank],
@@ -49,6 +52,12 @@ selective-checkpoint context and recomputes the rest, as the reference's
 ``dots_with_no_batch_dims_saveable`` policy does. On the card the
 attention kernel's backward is a kernel (``FlashAttentionFn``); the
 kernels without one raise under grad (``kernels/*/ops.py``).
+
+On ``device="meta"`` ``init_params`` and ``init_cache`` give every leaf
+its shape and dtype and draw nothing (the dry run's ``eval_shape``). Under
+``distributed.sharding.use_mesh`` each block's output passes
+``constrain(x, (BATCH, None, None))``, where the reference constrains it,
+and the MoE blocks take their expert-parallel form.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import PORTED_FAMILIES
+from repro_torch.distributed.sharding import BATCH, FSDP, TP, constrain
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -74,13 +84,17 @@ from repro_torch.models.layers import (
     cross_entropy,
     dense_init,
     embed as embed_fn,
+    embedding_specs,
     init_embedding,
+    init_generator,
     init_mlp,
     mlp,
+    mlp_specs,
     ones_init,
     param_dtype,
     rms_norm,
     rope_angles,
+    stack_spec,
     unembed_logits,
     zeros_init,
 )
@@ -167,10 +181,11 @@ def _init_ssm_stack(gen, cfg, n: int, dev) -> Params:
 
 def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device`` (None = CUDA, raising without one)."""
+    on ``device`` (None = CUDA, raising without one); on ``meta`` the
+    shapes and dtypes only."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = init_generator(dev, seed)
     d, dt = cfg.d_model, param_dtype(cfg)
     params: Params = {}
     if cfg.modality == "audio":
@@ -215,6 +230,56 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     else:
         params["layers"] = _init_attn_stack(gen, cfg, cfg.num_layers, d, dev)
     return params
+
+
+def _attn_stack_specs(cfg, n: int, ffn: str = "mlp") -> Params:
+    """``_init_attn_stack``'s spec tree (the norms' width over ``FSDP``)."""
+    specs: Params = {"ln1": (None, FSDP), "ln2": (None, FSDP)}
+    if cfg.post_norms:
+        specs["ln1_post"] = (None, FSDP)
+        specs["ln2_post"] = (None, FSDP)
+    specs["attn"] = attn_mod.mla_specs(n) if cfg.mla is not None else attn_mod.attn_specs(cfg, n)
+    specs["ffn"] = moe_mod.moe_specs(cfg, n) if ffn == "moe" else mlp_specs(cfg, n)
+    return specs
+
+
+def _ssm_stack_specs(n: int) -> Params:
+    return {"ln": (None, FSDP), "ssm": ssm_mod.ssm_specs(n)}
+
+
+def param_specs(cfg) -> Params:
+    """The spec tree of ``init_params(cfg)``: the reference's
+    ``init_params(cfg, key)[1]``, leaf for leaf."""
+    _require_ported(cfg)
+    specs: Params = {}
+    if cfg.modality == "audio":
+        specs["embed"] = {"table": (None, TP, FSDP)}
+        specs["heads"] = (None, FSDP, TP)
+    else:
+        specs["embed"] = embedding_specs()
+        if not cfg.tie_embeddings:
+            specs["unembed"] = embedding_specs()
+    if cfg.modality == "vision":
+        specs["projector"] = {"w1": (None, FSDP), "b1": (None,), "w2": (FSDP, None),
+                              "b2": (None,)}
+    specs["final_norm"] = (FSDP,)
+    if cfg.family == "ssm":
+        specs["layers"] = _ssm_stack_specs(cfg.num_layers)
+    elif cfg.family == "hybrid":
+        specs["mamba"] = _ssm_stack_specs(cfg.num_layers)
+        specs["shared"] = _attn_stack_specs(cfg, cfg.num_shared_blocks)
+        specs["shared"]["down"] = (None, FSDP, None)
+    elif cfg.moe is not None:
+        fkd = cfg.moe.first_k_dense
+        if fkd:
+            specs["dense_layers"] = _attn_stack_specs(cfg, fkd)
+        specs["moe_layers"] = _attn_stack_specs(cfg, cfg.num_layers - fkd, ffn="moe")
+        if cfg.mtp_depth:
+            specs["mtp"] = {"block": _attn_stack_specs(cfg, 1, ffn="moe"), "norm1": (FSDP,),
+                            "norm2": (FSDP,), "proj": (FSDP, None)}
+    else:
+        specs["layers"] = _attn_stack_specs(cfg, cfg.num_layers)
+    return specs
 
 
 def _expected_tree(cfg) -> Dict[str, int]:
@@ -303,6 +368,24 @@ def init_cache(cfg, batch: int, max_seq: int, device: DeviceLike = None) -> Para
     return _stacked(attn, cfg.num_layers)
 
 
+def _stacked_specs(one: Params) -> Params:
+    return {k: stack_spec(v, 1) for k, v in one.items()}
+
+
+def cache_specs(cfg) -> Params:
+    """The spec tree of ``init_cache(cfg, ...)``: the reference's
+    ``init_cache(...)[1]`` (a replicated layer axis in front)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return _stacked_specs(ssm_mod.ssm_cache_specs())
+    if cfg.family == "hybrid":
+        return {"mamba": _stacked_specs(ssm_mod.ssm_cache_specs()),
+                "shared": _stacked_specs(attn_mod.attn_cache_specs())}
+    if cfg.mla is not None:
+        return _stacked_specs(attn_mod.mla_cache_specs())
+    return _stacked_specs(attn_mod.attn_cache_specs())
+
+
 def _attn_block_body(cfg, lp, x, positions, win, theta, rope_flag, cache_l, cache_pos, rope,
                      ffn: str = "mlp"):
     """One attention block (GQA, or MLA with ``cfg.mla``; ``rope`` is then
@@ -328,7 +411,7 @@ def _attn_block_body(cfg, lp, x, positions, win, theta, rope_flag, cache_l, cach
         f_out = mlp(lp["ffn"], h, cfg)
     if cfg.post_norms:
         f_out = rms_norm(f_out, lp["ln2_post"], cfg.norm_eps)
-    return x + f_out, metrics
+    return constrain(x + f_out, (BATCH, None, None)), metrics
 
 
 def _layer(tree, i: int):
@@ -342,7 +425,8 @@ def _ssm_layers(stack, cfg, x, layers, *, cache=None, decode=False):
 
         def block(x, lp=lp, cache_l=cache_l):
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
-            return x + ssm_mod.ssm_block(lp["ssm"], cfg, h, cache=cache_l, decode=decode)
+            out = ssm_mod.ssm_block(lp["ssm"], cfg, h, cache=cache_l, decode=decode)
+            return constrain(x + out, (BATCH, None, None))
 
         x = _remat(block, cfg)(x)
     return x
@@ -391,6 +475,28 @@ def _attn_stacks(cfg) -> List[Tuple[str, str, int, int]]:
     fkd = cfg.moe.first_k_dense
     stacks = [("dense_layers", "mlp", fkd, 0)] if fkd else []
     return stacks + [("moe_layers", "moe", cfg.num_layers - fkd, fkd)]
+
+
+def layer_stacks(cfg, train: bool = False) -> Dict[Tuple[str, ...], int]:
+    """The parameter tree's stacks of layers by path (every leaf below one
+    holds the layer on axis 0, ``stack_spec``'s leading None), each with how
+    many layers one forward pass applies from it: the hybrid's shared
+    blocks once per group, the MTP block in training only. Each layer is
+    one remat unit."""
+    if cfg.family == "ssm":
+        return {("layers",): cfg.num_layers}
+    if cfg.family == "hybrid":
+        return {("mamba",): cfg.num_layers, ("shared",): _zamba_groups(cfg)[0]}
+    stacks = {(key,): n for key, _, n, _ in _attn_stacks(cfg)}
+    if cfg.moe is not None and cfg.mtp_depth:
+        stacks[("mtp", "block")] = int(train)
+    return stacks
+
+
+def head_passes(cfg, train: bool = False) -> int:
+    """How many times one forward pass looks tokens up in the embedding and
+    projects onto the vocabulary: twice in training with the MTP head."""
+    return 2 if train and cfg.moe is not None and cfg.mtp_depth else 1
 
 
 def _attn_layers(stack, cfg, x, positions, *, ffn: str, n: int, first: int = 0, cache=None,

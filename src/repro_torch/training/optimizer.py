@@ -12,8 +12,10 @@ state trees and leaves its inputs as they are.
 The reference scans its stacked leaves layer by layer to bound the float32
 working set on a TPU; here a leaf is updated whole (the per-row
 quantization makes the two equal), one leaf at a time, so the float32
-transients are one leaf's. The sharding of the moments
-(``opt_state_specs``) comes with the dry-run tooling (ROADMAP A15).
+transients are one leaf's. ``opt_state_specs`` shards the moments like
+their parameters (the 8-bit scales drop the last axis), and over ``pod``
+too with ``pod_extend``. On ``meta`` ``init_opt_state`` gives shapes and
+dtypes only.
 """
 from __future__ import annotations
 
@@ -81,6 +83,25 @@ def init_opt_state(params, cfg: AdamWConfig):
         return {"m": zeros, "v": zeros.clone()}
 
     return tree_map(one, params)
+
+
+def opt_state_specs(param_specs, params, cfg: AdamWConfig, pod_extend: bool = False):
+    """The moments' spec tree: each moment sharded like its parameter, the
+    8-bit scales without the last axis. ``pod_extend`` shards them over
+    ``pod`` as well (``("pod", "data")`` for ``data``): cross-pod ZeRO-1,
+    the moments touched once a step, so their per-chip bytes halve on two
+    pods."""
+
+    def one(spec, p):
+        spec = tuple(spec) if spec is not None else (None,) * p.dim()
+        if pod_extend:
+            spec = tuple(("pod", "data") if e == "data" else e for e in spec)
+        if _is_quantized(p, cfg):
+            scale_spec = spec[:-1] + (None,)
+            return {"m": {"q": spec, "scale": scale_spec}, "v": {"q": spec, "scale": scale_spec}}
+        return {"m": spec, "v": spec}
+
+    return tree_map(one, param_specs, params)
 
 
 def global_norm(tree) -> torch.Tensor:

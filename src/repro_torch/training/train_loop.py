@@ -11,9 +11,9 @@ as the reference does. Nothing is jitted: the step runs eagerly.
 
 The state lives on the parameters' device; ``step`` is an int32 0-d tensor
 on the CPU (the schedule is computed on the host, so a step never waits on
-the card for it). The reference's spec trees (``init_train_state``'s
-second result, ``abstract_train_state``) serve its dry-run and sharded
-training and come with them (ROADMAP A15).
+the card for it). ``train_state_specs`` is the reference's second result of
+``init_train_state`` (the state's spec tree), and ``abstract_train_state``
+the reference's shape-only state with it, on ``meta``, for the dry run.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.training.optimizer import (
     AdamWConfig,
     adamw_update,
     init_opt_state,
+    opt_state_specs,
     tree_leaves,
     tree_map,
 )
@@ -52,6 +53,27 @@ def init_train_state(cfg, seed: int = 0, device: DeviceLike = None) -> TrainStat
     params = T.init_params(cfg, seed=seed, device=device)
     return TrainState(params, init_opt_state(params, opt_config(cfg)),
                       torch.zeros((), dtype=torch.int32))
+
+
+def train_state_specs(cfg, params=None) -> TrainState:
+    """The state's spec tree (the reference's ``init_train_state(...)[1]``):
+    the parameters', the moments' (``opt_state_specs``, over ``pod`` too
+    under ``cfg.opt_pod_sharded``) and the step's ``()``. ``params`` (a
+    tree of tensors or meta tensors) gives the leaves' shapes; the meta
+    parameters by default."""
+    params = params if params is not None else T.init_params(cfg, device="meta")
+    p_specs = T.param_specs(cfg)
+    return TrainState(params=p_specs,
+                      opt_state=opt_state_specs(p_specs, params, opt_config(cfg),
+                                                pod_extend=cfg.opt_pod_sharded),
+                      step=())
+
+
+def abstract_train_state(cfg) -> Tuple[TrainState, TrainState]:
+    """(the state on ``meta``: every leaf's shape and dtype, nothing
+    allocated or drawn; its spec tree), for the dry run."""
+    state = init_train_state(cfg, device="meta")
+    return state, train_state_specs(cfg, state.params)
 
 
 def _on(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:

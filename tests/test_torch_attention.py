@@ -234,3 +234,23 @@ def test_wide_heads_plain_match_reference_oracles(case, Dh, dtype):
                            softcap=cap)
     want = j_decode_ref(jq[:, -1], jk, jv, jnp.asarray(lens), window=window, softcap=cap)
     _close(got, want, tol)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0), (True, 20, 10.0),
+                                                   (False, 7, 0.0)])
+def test_plain_flash_over_query_blocks_matches_the_oracle(monkeypatch, causal, window,
+                                                          softcap):
+    """``flash_attention_plain`` walks blocks of ``PLAIN_BLOCK_Q`` query
+    rows: cut to 16-row blocks, a ragged S of 72 (four whole blocks and one
+    of 8) gives the reference oracle's rows and the one-block run's
+    log-sum-exp."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, 72, 4, 2, 32, "float32", seed=23)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    whole, whole_lse = fk.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    monkeypatch.setattr(fk, "PLAIN_BLOCK_Q", 16)
+    got, lse = fk.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    _close(got, j_flash_ref(jq, jk, jv, **kw), 2e-5)
+    np.testing.assert_allclose(lse.numpy(), whole_lse.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+    meta = flash_attention(*(t.to("meta") for t in (tq, tk, tv)), **kw)
+    assert meta.is_meta and meta.shape == got.shape and meta.dtype == got.dtype

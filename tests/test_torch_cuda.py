@@ -4,7 +4,9 @@ decode attention B3, flash attention B4 (with MLA's value width too), the
 SSD chunked scan B5, and the backward kernels of B4 and B5), the
 wrappers' refusals, the read path through the
 kernel against the same read through the plain search, the MoE FFN's
-routing on the card against the CPU's, and the serving engines (dense,
+routing on the card against the CPU's (and its expert-parallel form over
+mesh positions on the card against the same positions on the CPU), and
+the serving engines (dense,
 SSM and MoE) on the card against their CPU runs.
 
 They import torch and the port only, never JAX, so they also run where
@@ -710,6 +712,46 @@ def test_moe_routes_on_the_card_as_on_the_cpu(arch, dev):
     assert torch.equal(idx_dev.cpu()[decided], idx_cpu[decided])
     assert float(m_dev["moe_drop_fraction"]) == float(m_cpu["moe_drop_fraction"])
     np.testing.assert_allclose(y_dev.cpu().numpy(), y_cpu.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (2, 4)], ids=lambda s: f"d{s[0]}m{s[1]}")
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_sharded_moe_on_the_card_matches_the_cpu(arch, shape, dev):
+    """The MoE's expert-parallel form (``moe_ffn`` under ``use_mesh``) at
+    the smoke widths in float32 (TF32 off), with a nonzero router bias and
+    a capacity that drops: every mesh position on the card against the
+    same mesh with every position on the CPU. The drop fraction equal (no
+    token is near a routing tie at these inputs: checked), outputs within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if "router_bias" in params:
+        params["router_bias"] = 0.1 * torch.randn(cfg.moe.num_experts,
+                                                  generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (4, 20, cfg.d_model)).astype(np.float32))
+    logits = x.reshape(80, -1) @ params["router"]
+    scores = torch.sigmoid(logits) + params["router_bias"] if "router_bias" in params \
+        else torch.softmax(logits, -1)
+    top = torch.sort(scores, -1, descending=True).values
+    k = cfg.moe.top_k
+    assert ((top[:, k - 1] - top[:, k]) > 1e-4).all()  # no token near a tie
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        p = {name: v.to(d) for name, v in params.items()}
+        with use_mesh(make_test_mesh(shape, ("data", "model"), device=d)):
+            y, m = moe.moe_ffn(p, cfg, x.to(d), capacity_factor=0.5)
+        runs.append((y.cpu(), float(m["moe_drop_fraction"])))
+    (y_cpu, drop_cpu), (y_dev, drop_dev) = runs
+    assert drop_dev == drop_cpu > 0
+    np.testing.assert_allclose(y_dev.numpy(), y_cpu.numpy(), atol=1e-4, rtol=1e-4)
 
 
 def test_moe_engine_on_the_card_matches_its_cpu_run(dev):

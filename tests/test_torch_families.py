@@ -35,10 +35,10 @@ ARCHS = ("qwen3-8b", "gemma2-27b", "gemma3-4b", "llava-next-mistral-7b", "musicg
          "zamba2-7b", "llama4-scout-17b-a16e", "deepseek-v3-671b")
 MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
 TOL = 1e-4
-# the reference's fields the port leaves out: the TPU programs' and the mesh's
+# the reference's fields the port leaves out: the TPU programs' (the mesh-layout
+# choices infer_params_tp_only and opt_pod_sharded are kept for the dry run)
 DROPPED = {"attn_chunk", "use_pallas", "kernel_interpret", "topk_block_n", "topk_grid_order",
-           "unroll", "infer_params_tp_only", "kv_cache_dtype", "opt_pod_sharded",
-           "gqa_repeat_kv"}
+           "unroll", "kv_cache_dtype", "gqa_repeat_kv"}
 
 
 @pytest.mark.parametrize("smoke", [False, True])

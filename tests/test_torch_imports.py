@@ -82,6 +82,7 @@ def test_every_module_imports_without_a_build():
                 ("optimizer", "schedule", "grad_compress", "train_loop")}
     assert training | {"repro_torch.launch.train", "repro_torch.checkpoint.checkpoint",
                        "repro_torch.data.loader"} <= set(names)
+    assert {f"repro_torch.launch.{m}" for m in ("dryrun", "specs", "hlo_analysis")} <= set(names)
     for name in names:
         importlib.import_module(name)
     if not torch.cuda.is_available():
