@@ -6,7 +6,7 @@ vision, audio, SSM, hybrid and MoE models).
     python3 chip_smoke.py [--profile]
                           [--attention-only | --topk-only | --ssd-only | --arch-only
                            | --moe-only | --sharded-only | --gateway-only | --train-only
-                           | --bwd-only | --mesh-only]
+                           | --bwd-only | --mesh-only | --analysis-only]
                           [--src DIR]
 
 It builds the port's five CUDA libraries from the sources in this checkout
@@ -103,7 +103,17 @@ harness's paced workload of 256 requests from 24 users in process and
 over HTTP, per-class p50/p95/p99, sheds, 504s, errors and the drain),
 ``serve:`` (``repro_torch.launch.serve.main`` at ``--requests 8``, then
 with ``--coalesce``, then ``--shards 8``: the HIT/MISS sequence, counts,
-mesh positions and launches), the
+mesh positions and launches), ``analysis:`` (``repro_torch.analysis``
+over ``src/repro_torch``: regions, device functions, 0 findings, each
+suppression; the card's sync detector on one line of each form the
+checkers flag, as controls; then the device regions, each warmed up and
+run once under ``torch.cuda.set_sync_debug_mode("warn")`` with every
+sync's Python place: ``run_program`` on a [2, 131072, 768] bank at B = 8
+on B1's route and on the lifecycle route, 0 syncs; the sharded read's
+``sharded_program`` over 8 positions on both routes, a qwen1.5-0.5b
+decode step at B = 4, llama4-scout's float32 MoE layer at T = 4 and a
+2-layer train step, every sync on a line the scan flags; the whole
+single-store and sharded ``fused_read`` reported beside them), the
 ``engine:`` lines of gemma2-27b, gemma3-4b (and its long line) and llava,
 ``engine: musicgen-large model-level``, ``train:`` (B4's backward against
 its plain version at every head width, (192, 128) included, and B5's at
@@ -159,7 +169,9 @@ kernels' ``train: check`` and ``time:`` lines (B4 and both backward
 libraries built; each backward ``time:`` line gives the minimum, median
 and maximum of three traces beside its median ``kernel_ms``),
 ``--mesh-only`` only the ``moe:``, ``mesh:`` and ``dryrun:`` lines (B3/B4
-built), and
+built), ``--analysis-only`` only the ``analysis:`` lines (B1/B2, B3, B4
+and B4's backward built; with ``--src`` an older tree without
+``repro_torch.analysis`` has its syncs counted and not gated), and
 ``--src DIR`` drives the repro_torch package under DIR instead of this
 checkout's, so that another tree (a parent commit unpacked beside it) is
 measured by the same code in the same run. Any failure raises, and
@@ -508,6 +520,7 @@ def build_all(only=None):
     libs = {"attention": [fk.LIB, dk.LIB], "topk": [tk.LIB], "ssd": [sk.LIB],
             "sharded": [tk.LIB, fk.LIB, dk.LIB], "gateway": [tk.LIB, fk.LIB, dk.LIB],
             "train": [fk.LIB, fk.LIB_BWD, sk.LIB, sk.LIB_BWD],
+            "analysis": [tk.LIB, dk.LIB, fk.LIB, fk.LIB_BWD],
             "bwd": [fk.LIB, fk.LIB_BWD, sk.LIB_BWD]}.get(
         only, [tk.LIB, fk.LIB, dk.LIB, sk.LIB, fk.LIB_BWD, sk.LIB_BWD])
     t0 = time.perf_counter()
@@ -3402,6 +3415,319 @@ def train_phase(dev, gpu, extra=False):
     return launches, errs, figures
 
 
+def static_scan(src):
+    """``analysis: scan``: ``repro_torch.analysis`` over ``src/repro_torch``
+    (regions, device functions, findings, suppressions by code, seconds).
+    Any finding fails the phase. Returns the flagged lines, {(real path,
+    line): codes}: the suppressed findings (a repaired one no longer
+    syncs, so it is no longer there to flag)."""
+    from collections import Counter
+
+    from repro_torch.analysis import scan
+
+    t0 = time.perf_counter()
+    root = src.resolve().parent
+    sc = scan([str(src.resolve() / "repro_torch")], str(root))
+    sup = Counter(f.code for f in sc.suppressed)
+    print(f"analysis: scan src/repro_torch regions={len(sc.project.roots)} "
+          f"device_functions={len(sc.project.device_funcs)} findings={len(sc.findings)} "
+          f"suppressed={sum(sup.values())} {dict(sorted(sup.items()))} "
+          f"{time.perf_counter() - t0:.2f} s")
+    for f in sc.findings + sc.suppressed:
+        print(f"analysis: {'finding' if f in sc.findings else 'suppressed'} {f.render()}")
+    if sc.findings:
+        raise AssertionError(f"the static scan reports {len(sc.findings)} finding(s)")
+    flagged = {}
+    for f in sc.findings + sc.suppressed:
+        flagged.setdefault((os.path.realpath(root / f.path), f.line), set()).add(f.code)
+    return flagged
+
+
+def sync_audit(region, fn, flagged, src, launched=None, want=None, warm=2, quiet=False):
+    """Run ``fn`` (one device region's call) ``warm`` times, then once with
+    ``torch.cuda.set_sync_debug_mode("warn")``, recording the Python stack
+    of every "synchronizing CUDA operation" warning. A sync is flagged when
+    a frame of ``src/repro_torch`` on its stack sits on a line of
+    ``flagged``. Prints ``analysis: audit <region> syncs=N flagged=N`` and
+    one ``analysis: sync`` line per place. ``launched`` () -> {kernel:
+    count} is read around the audited call and must equal ``want`` when
+    given. Returns (syncs, flagged)."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    stacks = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stacks.append([fr for fr in traceback.extract_stack()[:-1]
+                           if os.path.basename(fr.filename) != "warnings.py"])
+
+    before = launched() if launched else {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    spent = {k: v - before[k] for k, v in launched().items()} if launched else {}
+    pkg = os.path.realpath(src / "repro_torch")
+    root = os.path.dirname(os.path.realpath(src))
+    places = Counter()
+    n_flagged = 0
+    for st in stacks:
+        ours = [(os.path.realpath(fr.filename), fr.lineno) for fr in st
+                if os.path.realpath(fr.filename).startswith(pkg + os.sep)]
+        hit = next((f for f in ours if f in (flagged or {})), None)
+        at = hit or (ours[-1] if ours else (st[-1].filename, st[-1].lineno))
+        chain = " < ".join(f"{os.path.relpath(f, root)}:{ln}" for f, ln in reversed(ours[-3:]))
+        places[(f"{os.path.relpath(at[0], root)}:{at[1]}", hit is not None, chain)] += 1
+        n_flagged += hit is not None
+    if quiet:
+        return len(stacks), n_flagged
+    print(f"analysis: audit {region} syncs={len(stacks)} flagged={n_flagged} "
+          f"launches={spent}")
+    if want is not None and spent != want:
+        raise AssertionError(f"{region}: launches {spent} != {want}")
+    for (at, ok, chain), c in sorted(places.items()):
+        label = ("flagged " + ",".join(sorted(flagged[_abs(root, at)])) if ok
+                 else "no scan" if flagged is None else "NOT FLAGGED")
+        print(f"analysis: sync {region} {at} x{c} {label} (stack: {chain})")
+    return len(stacks), n_flagged
+
+
+def sync_controls(dev, src, gpu):
+    """``analysis: control`` lines: the sync detector over one line of each
+    form the checkers flag (and of each form that repaired one), so the
+    audit's zeros are shown to come from a detector that fires. Each runs
+    warmed up, then once under ``sync_audit``. ``.item()`` must sync (the
+    detector works) and the repairs' forms must not."""
+    import numpy as np
+    import torch
+
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    host_scalar = torch.tensor(1.0)
+    host_rows = np.ones(8, np.float32)
+    idx = torch.as_tensor([0, 2], device=dev)
+    forms = {  # form -> (call, must sync: True / False / None = report only)
+        ".item()": (lambda: x[0].item(), True),
+        "torch.tensor(x, device=cuda)": (lambda: torch.tensor(3.0, device=dev), None),
+        "cpu_tensor.to(cuda)": (lambda: host_scalar.to(dev), None),
+        "torch.as_tensor(numpy, device=cuda)": (lambda: torch.as_tensor(host_rows, device=dev),
+                                                None),
+        "t[:, python_list]": (lambda: x[None][:, [0, 2]], None),
+        "nonzero()": (lambda: x.nonzero(), None),
+        "repeat_interleave(int)": (lambda: x.repeat_interleave(2), None),
+        "torch.full((), x, device=cuda)": (lambda: torch.full((), 3.0, device=dev), False),
+        "t.index_select(1, device_index)": (lambda: x[None].index_select(1, idx), False),
+        "repeat_interleave(int, output_size=)": (
+            lambda: x.repeat_interleave(2, output_size=16), False),
+    }
+    bad = []
+    for form, (fn, want) in forms.items():
+        syncs, _ = sync_audit(f"control {form}", fn, {}, src, quiet=True)
+        ok = want is None or (syncs > 0) == want
+        print(f"analysis: control {form} syncs={syncs} "
+              f"{'(must sync)' if want else '(must not sync)' if want is False else ''}"
+              f"{'' if ok else ' FAIL'} [{gpu}]")
+        if not ok:
+            bad.append(form)
+    if bad:
+        raise AssertionError(f"sync detector controls failed: {bad}")
+
+
+def _abs(root, at):
+    path, line = at.rsplit(":", 1)
+    return os.path.realpath(os.path.join(root, path)), int(line)
+
+
+def analysis_phase(dev, gpu, src, enc=None, params=None):
+    """``analysis:`` lines: the static scan of ``src/repro_torch``, then the
+    card's own sync detector over four device regions, each warmed up and
+    then run once under ``set_sync_debug_mode("warn")``: (a) ``run_program``
+    on the main path's [2, 131072, 768] bank at B = 8 on B1's route and on
+    the lifecycle route (0 syncs: the read's zero-host-hop contract); (b)
+    ``sharded_program`` at B = 8 over ``make_cache_mesh(8)`` (B1 over L1,
+    B2 at each position); (c) one B = 4 ``decode_step`` of qwen1.5-0.5b at
+    full width (B3); (d) llama4-scout's full-width float32 MoE layer at
+    T = 4; (e) a train step of qwen1.5-0.5b cut to 2 layers (B4 and its
+    backward). In (b)-(e) every sync must sit on a line the scan flags.
+    ``enc`` and ``params`` (qwen1.5-0.5b's) are built when not given."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import read_path
+    from repro_torch.core.store_bank import StoreBank
+    from repro_torch.distributed import sharded_read
+    from repro_torch.distributed.sharded_store import ShardedVectorStore
+    from repro_torch.kernels.backend import to_device
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.similarity_topk import kernel as tk
+    from repro_torch.kernels.similarity_topk import ops
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+
+    scanned = (src / "repro_torch" / "analysis").is_dir()
+    if scanned:
+        flagged = static_scan(src)
+    else:  # an older tree (``--src``): its syncs are counted, not gated
+        flagged = None
+        print(f"analysis: scan skipped: {src} has no repro_torch.analysis; syncs reported "
+              "only")
+    on_card = dev.type == "cuda"
+    if on_card:
+        sync_controls(dev, src, gpu)
+    if enc is None:
+        from repro_torch.configs.contriever import CONTRIEVER_MSMARCO
+        from repro_torch.core import ContrieverEncoder
+
+        enc = ContrieverEncoder(CONTRIEVER_MSMARCO, seed=SEED, device=dev)
+
+    def launched():
+        return {"B1+B2": tk.launches, "B2": ops.single_store_launches, "B3": dk.launches}
+
+    B = 8
+    results = {}
+    # (a) the single-store read program on the main path's bank shape
+    bank = StoreBank(enc.dim, (L1_CAP, L2_CAP), use_pallas=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rows = torch.randn((2, L2_CAP, enc.dim), generator=g, device=dev)
+    bank.buf.copy_(rows / rows.norm(dim=-1, keepdim=True))
+    del rows
+    bank.valid[0, :int(0.9 * L1_CAP)] = True
+    bank.valid[1, :int(0.9 * L2_CAP)] = True
+    spec = read_path.LevelSpec(True, True, 0.3, 0.9, TOPK, TOPK)
+    specs = (spec, spec)
+    prepare, forward = enc.fused_forward()
+    args, n, Bq = prepare([f"audit query {i}" for i in range(B)])
+    embed_args = tuple(to_device(a, dev) for a in args)
+    thr = torch.full((Bq, 2), 0.5, device=dev)
+    qmask = torch.ones(Bq, dtype=torch.bool, device=dev)
+    now = float(np.float32(bank.rel_now()))
+
+    def program(lifecycle):
+        return lambda: read_path.run_program(bank, forward, embed_args, thr, qmask, specs,
+                                             TOPK, True, lifecycle, bank.next_tick(), now)
+
+    b1 = {"B1+B2": 1, "B2": 0, "B3": 0} if on_card else None
+    results["run_program"] = sync_audit("run_program B1", program(False), flagged, src,
+                                        launched, b1) + ("zero",)
+    created = np.zeros((2, L2_CAP))
+    expires = np.where(np.arange(L2_CAP) % 3 == 0, now + 600.0, np.inf)[None].repeat(2, 0)
+    bank.set_lifecycle(created, expires)
+    bank.set_staleness(1, 0.05)
+    if not bank.lifecycle_active():
+        raise AssertionError("the audit's bank is not on the lifecycle route")
+    results["run_program lifecycle"] = sync_audit("run_program lifecycle", program(True),
+                                                  flagged, src, launched, b1) + ("zero",)
+    # the whole single-store read (host side included: its uploads before the
+    # program and its one fetch after), reported, not gated
+    thr_np = np.full((B, 2), 0.5, np.float32)
+    texts = [f"audit query {i}" for i in range(B)]
+    results["fused_read"] = sync_audit("fused_read (host entry, reported)", lambda: (
+        read_path.fused_read(bank, enc, texts, thr_np, specs)), flagged, src) + (None,)
+    del bank
+    free_card()
+    # (b) the sharded read's device program
+    cached, probes, traffic, knobs = traffic_setup(enc)
+    mesh = make_cache_mesh(SHARDS, device=dev)
+    h = sharded_hierarchy(enc, knobs, sharded_fill(enc, cached), ShardedVectorStore(
+        mesh, enc.dim, L2_CAP, k=TOPK, use_pallas=True), dev)
+    srb = h.ensure_sharded_bank()
+    sspecs = tuple(read_path.level_spec(c, TOPK) for _, c in h._levels())
+    args, n, Bq = prepare([q for q, _ in traffic[:B]])
+    qmask = torch.ones(Bq, dtype=torch.bool, device=dev)
+    sh_args = tuple(to_device(a, dev) for a in args)
+    sthr = torch.as_tensor(np.asarray([[c.effective_threshold(t, None) for _, c in h._levels()]
+                                       for t, _ in traffic[:B]], np.float32), device=dev)
+    rmask = torch.ones((Bq, len(sspecs)), dtype=torch.bool, device=dev)
+    shard_ok = np.ones(srb.n_shards, bool)
+    texts = [q for q, _ in traffic[:B]]
+    sthr_np = np.asarray([[c.effective_threshold(t, None) for _, c in h._levels()]
+                          for t in texts], np.float32)
+
+    def sharded_audits(route, want):
+        ticks = tuple(b.next_tick() for b in srb.banks())
+        if hasattr(sharded_read, "sharded_program"):
+            results[f"sharded_program{route}"] = sync_audit(
+                f"sharded_program{route}", lambda: sharded_read.sharded_program(
+                    srb, forward, sh_args, sthr, qmask, rmask, shard_ok, sspecs, TOPK, True,
+                    ticks, now), flagged, src, launched, want if on_card else None) + (
+                "flagged",)
+        results[f"sharded fused_read{route}"] = sync_audit(
+            f"sharded fused_read{route} (host entry, reported)",
+            lambda: srb.fused_read(enc, texts, sthr_np, sspecs), flagged, src) + (None,)
+
+    sharded_audits("", {"B1+B2": 1 + SHARDS, "B2": SHARDS, "B3": 0})
+    # the same program with L2 on the lifecycle route (TTLs and a staleness
+    # weight: L2's positions plain, L1 still through B1)
+    l2 = h.l2.store
+    l2.add_batch(enc.embed_batch([q for q, _ in traffic[:B]]), [f"ttl {i}" for i in range(B)],
+                 [f"ttl answer {i}" for i in range(B)], ttls=[3600.0] * B)
+    for lane in range(l2.n_shards):
+        l2.bank.set_staleness(lane, 0.05)
+    if not l2.bank.lifecycle_active():
+        raise AssertionError("the audit's sharded L2 is not on the lifecycle route")
+    sharded_audits(" lifecycle", {"B1+B2": 1, "B2": 0, "B3": 0})
+    del h, srb, l2
+    free_card()
+    # (c) one decode step of the dense engine's model
+    cfg = get_config(LLM)
+    if params is None:
+        params = T.init_params(cfg, SEED, device=dev)
+    cache = T.init_cache(cfg, ENGINE_BATCH, ENGINE_SEQ, device=dev)
+    rng = np.random.default_rng(SEED + 22)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, 1)), device=dev)
+    pos = torch.as_tensor(rng.integers(8, ENGINE_SEQ - 8, ENGINE_BATCH), device=dev)
+    results["decode_step"] = sync_audit(
+        f"decode_step {LLM} B={ENGINE_BATCH}", lambda: T.decode_step(params, cfg, toks, pos, cache),
+        flagged, src, launched,
+        {"B1+B2": 0, "B2": 0, "B3": cfg.num_layers} if on_card else None) + ("flagged",)
+    del cache, params
+    free_card()
+    # (d) llama4-scout's MoE layer (the moe: line's), full width, float32
+    mcfg = cut_config(MOE_ARCHS[0], dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p_moe = moe.init_moe(gen, mcfg, device=dev)
+    x = torch.as_tensor(np.random.default_rng(SEED + 13).standard_normal(
+        (1, 4, mcfg.d_model)).astype(np.float32), device=dev)
+    results["moe_ffn"] = sync_audit(f"moe_ffn {MOE_ARCHS[0]} T=4", lambda: moe.moe_ffn(
+        p_moe, mcfg, x), flagged, src) + ("flagged",)
+    del p_moe
+    free_card()
+    # (e) a training step (qwen1.5-0.5b's smoke width): its input batch goes
+    # up inside the step, the one RA203 suppressed in the port
+    tcfg = cut_config(LLM, layers=2)
+    tstate = init_train_state(tcfg, seed=SEED, device=dev)
+    tstep = make_train_step(tcfg, peak_lr=1e-3, warmup_steps=3, total_steps=30)
+    tbatch = {"tokens": np.random.default_rng(SEED + 23).integers(
+        0, tcfg.vocab_size, (2, 129)).astype(np.int32)}
+    results["train_step"] = sync_audit(f"train_step {LLM} 2 layers", lambda: tstep(
+        tstate, tbatch), flagged, src) + ("flagged",)
+    del tstate
+    free_card()
+    if not scanned:
+        print(f"analysis: gates not applied (no scan) [{gpu}]")
+        return
+    bad = [k for k, (syncs, flg, gate) in results.items()
+           if (gate == "zero" and syncs) or (gate == "flagged" and syncs != flg)]
+    print(f"analysis: gates run_program syncs=0 on both routes; every other region's sync on "
+          f"a flagged line -> {'ok' if not bad else 'FAIL ' + ', '.join(bad)} [{gpu}]")
+    if bad:
+        raise AssertionError(f"sync audit failed in {bad}")
+
+
 class PhaseClock:
     """``phase:`` lines: the wall seconds of each phase of the run."""
 
@@ -3456,6 +3782,11 @@ def main() -> int:
                     help="only the model on a mesh: B3/B4 built, the moe: lines with the "
                          "mesh: lines of the MoE layers' expert-parallel form, the mesh: "
                          "llama4 model line and the dryrun: lines, then stop")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="only the static analysis and the card's sync audit: B1/B2 and B3 "
+                         "built, the analysis: lines (the scan of src/repro_torch; run_program, "
+                         "the sharded read's program, a qwen1.5-0.5b decode step and "
+                         "llama4-scout's MoE layer under the sync detector), then stop")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the directory holding the repro_torch package to drive (default: "
                          "this checkout's src; another tree's, e.g. a parent commit "
@@ -3490,8 +3821,13 @@ def main() -> int:
               else "topk" if args.topk_only
               else "ssd" if args.ssd_only else "sharded" if args.sharded_only
               else "gateway" if args.gateway_only else "train" if args.train_only
-              else "bwd" if args.bwd_only else None)
+              else "bwd" if args.bwd_only else "analysis" if args.analysis_only else None)
     clock.lap("build")
+    if args.analysis_only:
+        analysis_phase(dev, gpu, args.src)
+        clock.lap("analysis")
+        print(f"analysis-only: done [{gpu}]")
+        return 0
     if args.bwd_only:
         flash_bwd_checks(dev, gpu)
         free_card()
@@ -3622,9 +3958,13 @@ def main() -> int:
     sharded_phase(dev, gpu, enc, engine)
     clock.lap("sharded read")
     gateway_phase(dev, gpu, enc, engine, inproc_p50)
+    clock.lap("gateway and serve")
+    # the static analysis held against the card's sync detector, over the
+    # read path's and the engine's objects
+    analysis_phase(dev, gpu, args.src, enc, engine.params)
     del engine, ssm_engine, enc
     free_card()
-    clock.lap("gateway and serve")
+    clock.lap("analysis")
     arch_rest(dev, gpu)
     free_card()
     clock.lap("other engines")

@@ -128,7 +128,7 @@ def make_decide(specs: Tuple[LevelSpec, ...], K: int, device: torch.device):
     colK = torch.arange(K, device=device)
     lanes = torch.arange(L, device=device)
 
-    def decide(s, thresholds, qmask):
+    def decide(s, thresholds, qmask):  # repro: device-region
         # -- decide: the _decide_batch semantics as [B, L] masks -------------
         finite = s > _NEG_FINITE
         best = s[:, :, 0]  # scores sorted desc, so [.., 0] is each lane's best
@@ -185,6 +185,7 @@ def _lifecycle(bank: StoreBank, s, idx, now: float, K: int):
     return s, torch.gather(idx, -1, order)
 
 
+# repro: device-region static[specs, K, use_kernel, lifecycle, tick, now]
 def run_program(bank: StoreBank, forward, embed_args, thresholds, qmask,
                 specs: Tuple[LevelSpec, ...], K: int, use_kernel: bool,
                 lifecycle: bool, tick: int, now: float):

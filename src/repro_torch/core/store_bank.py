@@ -115,6 +115,7 @@ def _normalize_rows(rows: torch.Tensor) -> torch.Tensor:
 # -- in-place device updates (the reference's donated scatters) --------------
 
 
+# repro: device-region static[lane, normalize]
 def _bank_scatter(bank: "StoreBank", lane: int, idxs: torch.Tensor, rows: torch.Tensor,
                   counters: tuple, *, normalize: bool) -> None:
     """Row scatter with the insert-time counter AND lifecycle resets, all in
@@ -136,7 +137,7 @@ def upload_columns(cols: Tuple[np.ndarray, ...], device: torch.device) -> tuple:
 
 
 def _bank_counter_set(bank: "StoreBank", c_lanes, c_idxs, c_ticks, c_seqs, c_cnts,
-                      c_created, c_expires) -> None:
+                      c_created, c_expires) -> None:  # repro: device-region
     if c_lanes.numel() == 0:
         return
     at = (c_lanes, c_idxs)
@@ -147,6 +148,7 @@ def _bank_counter_set(bank: "StoreBank", c_lanes, c_idxs, c_ticks, c_seqs, c_cnt
     bank.d_expires.index_put_(at, c_expires)
 
 
+# repro: device-region
 def _bank_free(bank: "StoreBank", lanes: torch.Tensor, idxs: torch.Tensor) -> None:
     """Freed-slot hygiene in one in-place update: validity AND the slot's
     whole metadata row reset, so a recycled slot is indistinguishable from
@@ -160,6 +162,7 @@ def _bank_free(bank: "StoreBank", lanes: torch.Tensor, idxs: torch.Tensor) -> No
     bank.d_expires[at] = float("inf")
 
 
+# repro: device-region static[tick]
 def _bank_touch(last: torch.Tensor, cnt: torch.Tensor, lanes: torch.Tensor,
                 idxs: torch.Tensor, weights: torch.Tensor, tick: int) -> None:
     """Batched recency/frequency bump for N (lane, idx) touches, in place.
@@ -221,6 +224,7 @@ def _topk_desc(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return ts[..., :k], ti[..., :k]
 
 
+# repro: device-region static[k, metrics, prenorm]
 def fused_search_body(buf, valid, q, k: int, metrics: tuple, prenorm: tuple):
     """The plain fused all-lanes search, shared by ``search_lanes`` and the
     read path (repro_torch.core.read_path): buf [L, cap, D], valid [L, cap],

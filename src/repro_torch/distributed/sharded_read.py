@@ -131,7 +131,8 @@ def _local_topk(part: StoreBank, q, K: int, metric: str, prenorm: bool, use_kern
     k = min(K, lanes_loc * cap_local)
     if lifecycle:  # the expiry mask and the penalty before the top-k
         pen = _penalty(part.d_created.reshape(-1), part.d_expires.reshape(-1),
-                       part.d_staleness().repeat_interleave(cap_local), now)
+                       part.d_staleness().repeat_interleave(
+                           cap_local, output_size=lanes_loc * cap_local), now)
         return position_topk(part.buf, part.valid & (part.d_expires > now), q, k, metric,
                              prenorm, penalty=pen)
     if not use_kernel:
@@ -193,6 +194,14 @@ class ShardedReadBank:
                 layout.append(("sh", si))
                 si += 1
         self.layout = tuple(layout)
+        # the replicated levels' columns of a read's [B, L, K] candidates and
+        # their lanes in the replicated bank, on the device once (the touch
+        # indexes with them on every read)
+        rep = [(li, j) for li, (kind, j) in enumerate(self.layout) if kind == "rep"]
+        self.rep_cols = self.rep_lanes = None
+        if rep:
+            self.rep_cols = torch.as_tensor([li for li, _ in rep], device=self.device)
+            self.rep_lanes = torch.as_tensor([j for _, j in rep], device=self.rep_bank.device)
         self.dim = (self.rep_bank or self.sh_stores[0].bank).dim
         # dataflow counters (same contract as StoreBank's): one read counts
         # ONE dispatch however many positions it spans
@@ -289,53 +298,16 @@ class ShardedReadBank:
         banks = self.banks()
         for b in banks:
             b.flush_pending()
-        ticks = [b.next_tick() for b in banks] if touch else []
-        now = torch.tensor(float(np.float32(StoreBank.rel_now())), dtype=torch.float32)
+        ticks = tuple(b.next_tick() for b in banks) if touch else ()
+        now = float(np.float32(StoreBank.rel_now()))
         self.dispatches += 1
-
-        q = forward(*(to_device(a, dev) for a in args)).to(torch.float32)  # [B, D]
-        level_s: List = [None] * L
-        level_i: List = [None] * L
-        rb = self.rep_bank
-        if rb is not None:
-            with _on(rb.device):
-                ts, ti = _rep_topk(rb, q.to(rb.device), K, rb.lifecycle_active(),
-                                   now.to(rb.device))
-            ts, ti = _pad_cols(ts.to(dev), ti.to(dev, torch.int64), K)
-            for li, (kind, j) in enumerate(self.layout):
-                if kind == "rep":
-                    level_s[li], level_i[li] = ts[:, j], ti[:, j]
-        for li, (kind, j) in enumerate(self.layout):
-            if kind != "sh":
-                continue
-            store = self.sh_stores[j]
-            use_kernel = store.use_pallas and store.metric in _KERNEL_METRICS
-            lifecycle = store.bank.lifecycle_active()  # the route is the level's own
-            cap_shard = store.bank.lanes_loc * store.cap_local
-            cand_s, cand_i = [], []
-            for sid, part in enumerate(store.bank.parts):
-                if shard_ok[sid]:
-                    with _on(part.device):  # a kernel launches on its position's card
-                        s, i = _local_topk(part, q.to(part.device), K, store.metric,
-                                           store.bank.prenormalized, use_kernel, lifecycle,
-                                           now.to(part.device))
-                else:  # a dead shard: -inf candidates at its lowest slots
-                    k_j = min(K, cap_shard)
-                    s = torch.full((B, k_j), float("-inf"), device=dev)
-                    i = torch.arange(k_j, device=dev).expand(B, k_j)
-                cand_s.append(s)
-                cand_i.append(i + sid * cap_shard)  # shard-local -> store-global
-            ts, ti = all_gather_merge_topk(self.mesh, self.axes, cand_s, cand_i, K)
-            level_s[li], level_i[li] = _pad_cols(ts, ti, K)
-        s_all = torch.stack(level_s, 1)  # [B, L, K]
-        idx_all = torch.stack(level_i, 1)
-        # router: an invisible lane's candidates can neither win nor be touched
-        s_all = s_all.masked_fill(~torch.as_tensor(rmask, device=dev)[:, :, None], float("-inf"))
-        winner, hit, generative, tmask = make_decide(specs, K, dev)(
-            s_all, to_device(thr, dev), qmask
+        # every host input goes up before the program: nothing inside it
+        # waits on a host->device copy
+        embed_args = tuple(to_device(a, dev) for a in args)
+        q, s_all, idx_all, winner, hit, generative = sharded_program(
+            self, forward, embed_args, to_device(thr, dev), qmask,
+            torch.as_tensor(rmask, device=dev), shard_ok, specs, K, touch, ticks, now,
         )
-        if touch:
-            self._touch(idx_all, tmask, ticks, shard_ok)
         # ONE host fetch for all decision tensors (the counters stay on their
         # devices; vector-ingress callers already hold the embeddings)
         s_all, idx_all, winner, hit, generative, q = fetch(
@@ -345,40 +317,98 @@ class ShardedReadBank:
             q = v
         return ReadDecision(q[:n], s_all[:n], idx_all[:n], winner[:n], hit[:n], generative[:n])
 
-    def _touch(self, idx_all, tmask, ticks, shard_ok) -> None:
-        """The counter touches: the replicated bank's in one update; each
-        live position bumps only the sharded slots it owns (a dead shard's
-        counters never move)."""
-        rb = self.rep_bank
-        rep = [(li, j) for li, (kind, j) in enumerate(self.layout) if kind == "rep"]
-        if rep:
-            cols = [li for li, _ in rep]
-            idx_r = idx_all[:, cols].to(rb.device)
-            lanes3 = torch.as_tensor([j for _, j in rep], device=rb.device)[None, :, None]
-            _bank_touch(
-                rb.d_last_access, rb.d_access_count, lanes3.expand_as(idx_r).reshape(-1),
-                idx_r.reshape(-1), tmask[:, cols].to(rb.device, torch.int32).reshape(-1),
-                ticks[0],
-            )
-            rb.mark_counters_dirty()
-        tick_off = 1 if rb is not None else 0
-        for li, (kind, j) in enumerate(self.layout):
-            if kind != "sh":
+
+# repro: device-region static[specs, K, touch, ticks, now]
+def sharded_program(srb: ShardedReadBank, forward, embed_args, thresholds, qmask, rmask,
+                    shard_ok: np.ndarray, specs: Tuple[LevelSpec, ...], K: int, touch: bool,
+                    ticks: Tuple[int, ...], now: float):
+    """The sharded read on the mesh's devices, the twin of
+    ``read_path.run_program``: embed -> replicated levels' top-k (B1) ->
+    each sharded level's per-position top-k (B2 or the plain version) and
+    candidate merge -> router mask -> decide -> in-place counter touches.
+    ``thresholds`` [B, L], ``qmask`` [B] and ``rmask`` [B, L] are already on
+    the first position's device, ``now`` is the read's float32 clock as a
+    Python float. Returns device tensors (q, s_all, idx_all, winner, hit,
+    generative); nothing crosses to the host in here."""
+    dev = srb.device
+    L = len(specs)
+    q = forward(*embed_args).to(torch.float32)  # [B, D]
+    B = q.shape[0]
+    level_s: List = [None] * L
+    level_i: List = [None] * L
+    rb = srb.rep_bank
+    if rb is not None:
+        with _on(rb.device):
+            ts, ti = _rep_topk(rb, q.to(rb.device), K, rb.lifecycle_active(), now)
+        ts, ti = _pad_cols(ts.to(dev), ti.to(dev, torch.int64), K)
+        for li, (kind, j) in enumerate(srb.layout):
+            if kind == "rep":
+                level_s[li], level_i[li] = ts[:, j], ti[:, j]
+    for li, (kind, j) in enumerate(srb.layout):
+        if kind != "sh":
+            continue
+        store = srb.sh_stores[j]
+        use_kernel = store.use_pallas and store.metric in _KERNEL_METRICS
+        lifecycle = store.bank.lifecycle_active()  # the route is the level's own
+        cap_shard = store.bank.lanes_loc * store.cap_local
+        cand_s, cand_i = [], []
+        for sid, part in enumerate(store.bank.parts):
+            if shard_ok[sid]:
+                with _on(part.device):  # a kernel launches on its position's card
+                    s, i = _local_topk(part, q.to(part.device), K, store.metric,
+                                       store.bank.prenormalized, use_kernel, lifecycle, now)
+            else:  # a dead shard: -inf candidates at its lowest slots
+                k_j = min(K, cap_shard)
+                s = torch.full((B, k_j), float("-inf"), device=dev)
+                i = torch.arange(k_j, device=dev).expand(B, k_j)
+            cand_s.append(s)
+            cand_i.append(i + sid * cap_shard)  # shard-local -> store-global
+        ts, ti = all_gather_merge_topk(srb.mesh, srb.axes, cand_s, cand_i, K)
+        level_s[li], level_i[li] = _pad_cols(ts, ti, K)
+    s_all = torch.stack(level_s, 1)  # [B, L, K]
+    idx_all = torch.stack(level_i, 1)
+    # router: an invisible lane's candidates can neither win nor be touched
+    s_all = s_all.masked_fill(~rmask[:, :, None], float("-inf"))
+    winner, hit, generative, tmask = make_decide(specs, K, dev)(s_all, thresholds, qmask)
+    if touch:
+        _touch(srb, idx_all, tmask, ticks, shard_ok)
+    return q, s_all, idx_all, winner, hit, generative
+
+
+def _touch(srb: ShardedReadBank, idx_all, tmask, ticks: Tuple[int, ...],
+           shard_ok: np.ndarray) -> None:
+    """The counter touches: the replicated bank's in one update; each live
+    position bumps only the sharded slots it owns (a dead shard's counters
+    never move)."""
+    rb = srb.rep_bank
+    if srb.rep_cols is not None:
+        idx_r = idx_all.index_select(1, srb.rep_cols).to(rb.device)
+        lanes3 = srb.rep_lanes[None, :, None]
+        _bank_touch(
+            rb.d_last_access, rb.d_access_count, lanes3.expand_as(idx_r).reshape(-1),
+            idx_r.reshape(-1),
+            tmask.index_select(1, srb.rep_cols).to(rb.device, torch.int32).reshape(-1),
+            ticks[0],
+        )
+        rb.mark_counters_dirty()
+    tick_off = 1 if rb is not None else 0
+    for li, (kind, j) in enumerate(srb.layout):
+        if kind != "sh":
+            continue
+        store = srb.sh_stores[j]
+        lanes_loc, cap_local = store.bank.lanes_loc, store.cap_local
+        for sid, part in enumerate(store.bank.parts):
+            if not shard_ok[sid]:
                 continue
-            store = self.sh_stores[j]
-            lanes_loc, cap_local = store.bank.lanes_loc, store.cap_local
-            for sid, part in enumerate(store.bank.parts):
-                if not shard_ok[sid]:
-                    continue
-                idxg = idx_all[:, li].to(part.device)
-                ll = idxg // cap_local - sid * lanes_loc
-                own = tmask[:, li].to(part.device) & (ll >= 0) & (ll < lanes_loc)
-                _bank_touch(
-                    part.d_last_access, part.d_access_count,
-                    ll.clamp(0, lanes_loc - 1).reshape(-1), (idxg % cap_local).reshape(-1),
-                    own.to(torch.int32).reshape(-1), ticks[tick_off + j],
-                )
-            store.bank.mark_counters_dirty()
+            idxg = idx_all[:, li].to(part.device)
+            ll = idxg // cap_local - sid * lanes_loc
+            own = tmask[:, li].to(part.device) & (ll >= 0) & (ll < lanes_loc)
+            _bank_touch(
+                part.d_last_access, part.d_access_count,
+                ll.clamp(0, lanes_loc - 1).reshape(-1), (idxg % cap_local).reshape(-1),
+                own.to(torch.int32).reshape(-1), ticks[tick_off + j],
+            )
+        store.bank.mark_counters_dirty()
 
 
 # -- host reference walk (parity tests only) ------------------------------------

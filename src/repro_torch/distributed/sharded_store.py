@@ -153,7 +153,7 @@ def make_banked_lookup(mesh, *, k: int, metric: str = "cosine", hierarchical: bo
     axes = _shard_axes(mesh)
     devs = shard_devices(mesh, axes)
 
-    def lookup(db, valid, q):
+    def lookup(db, valid, q):  # repro: device-region
         dbs, valids = _split(db, len(devs)), _split(valid, len(devs))
         q = q if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q, np.float32))
         ts, ti = [], []
@@ -178,12 +178,23 @@ def make_sharded_lookup(mesh, *, k: int, metric: str = "cosine", hierarchical: b
     n = len(shard_devices(mesh, axes))
     banked = make_banked_lookup(mesh, k=k, metric=metric, hierarchical=hierarchical)
 
-    def lookup(db, valid, q):
+    def lookup(db, valid, q):  # repro: device-region
         db = db if isinstance(db, torch.Tensor) else torch.as_tensor(np.asarray(db, np.float32))
         valid = valid if isinstance(valid, torch.Tensor) else torch.as_tensor(np.asarray(valid))
         return banked(db.reshape(n, -1, db.shape[-1]), valid.reshape(n, -1), q)
 
     return lookup
+
+
+def _part_scatter(part: StoreBank, lanes: torch.Tensor, idxs: torch.Tensor, rows: torch.Tensor,
+                  *, normalize: bool) -> None:  # repro: device-region
+    """One position's row scatter, in place: rows (unit-normalized for a
+    cosine bank) and validity at its lane-local (lanes, idxs); the counter
+    and lifecycle resets follow in ``_bank_counter_set``."""
+    if normalize:
+        rows = _norm_rows(rows)
+    part.buf[lanes, idxs] = rows
+    part.valid[lanes, idxs] = True
 
 
 class ShardedBank(StoreBank):
@@ -323,12 +334,9 @@ class ShardedBank(StoreBank):
                 rows_d = stage_pinned(sel_rows[m], part.device).to(part.device, non_blocking=True)
             else:
                 rows_d = to_device(sel_rows[m], part.device, torch.float32)
-            if self.prenorm[0]:
-                rows_d = _norm_rows(rows_d)
-            at = (to_device(local, part.device, torch.int64),
-                  to_device(withins[m], part.device, torch.int64))
-            part.buf[at] = rows_d
-            part.valid[at] = True
+            _part_scatter(part, to_device(local, part.device, torch.int64),
+                          to_device(withins[m], part.device, torch.int64), rows_d,
+                          normalize=self.prenorm[0])
         self._device_counter_set(cols)
 
 

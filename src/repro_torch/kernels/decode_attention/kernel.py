@@ -145,6 +145,7 @@ def decode_attention_plain(q, k, v, lengths, *, window=0, softcap=0.0, scale=Non
     return o.reshape(B, H, Dh).to(q.dtype)
 
 
+# repro: device-region static[window, softcap, scale]
 def decode_attention_cuda(q, k, v, lengths, *, window=0, softcap=0.0, scale=None):
     """Launch the Hopper kernel on the current stream (no synchronisation).
     Raises, launching nothing, on what it does not take: another device

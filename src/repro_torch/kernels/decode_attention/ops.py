@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import kernel as _kernel
 
 
+# repro: device-region static[window, softcap, scale]
 def decode_attention(q, k, v, lengths, *, window=0, softcap=0.0, scale=None):
     """q [B,H,Dh], k/v [B,S,KH,Dh], lengths [B] -> [B,H,Dh]."""
     plain = q.device.type in ("cpu", "meta")

@@ -192,6 +192,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# repro: device-region static[causal, window, softcap, scale, return_lse]
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
                          return_lse=False):
     """Launch the Hopper kernel on the current stream (no synchronisation);
@@ -289,6 +290,7 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_cuda`` with the row log-sum-exp and saves q, k, v, o
     and lse; the backward launches ``flash_attention_bwd_cuda``."""
 
+    # repro: device-region static[causal, window, softcap, scale]
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as _kernel
 
 
+# repro: device-region static[causal, window, softcap, scale]
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
     """q [B,S,H,Dh], k [B,S,KH,Dh], v [B,S,KH,Dv] -> [B,S,H,Dv] (GQA by head
     grouping; Dv = Dh, or MLA's value width)."""

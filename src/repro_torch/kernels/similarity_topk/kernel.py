@@ -166,9 +166,8 @@ def similarity_topk_lanes_plain(
     as the CUDA kernel."""
     rows = _check(db, valid, q, k, lane_rows)
     if lane_rows is not None:
-        held = torch.arange(db.shape[1], device=db.device)[None, :] < torch.tensor(
-            rows, device=db.device)[:, None]
-        valid = valid & held
+        cols = torch.arange(db.shape[1], device=db.device)
+        valid = valid & torch.stack([cols < r for r in rows])
     s = torch.matmul(q.unsqueeze(0), db.transpose(1, 2))  # [L, Q, N]
     s = s.masked_fill(~valid[:, None, :], NEG)
     top_s, top_i = torch.sort(s, dim=-1, descending=True, stable=True)
@@ -249,7 +248,7 @@ def similarity_topk_lanes_cuda(
     return out_s, out_i
 
 
-def similarity_topk_lanes_blocks(
+def similarity_topk_lanes_blocks(  # repro: device-region static[k, lane_rows]
     db: torch.Tensor, valid: torch.Tensor, q: torch.Tensor, k: int,
     lane_rows: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:

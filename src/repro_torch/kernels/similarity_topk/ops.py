@@ -20,6 +20,7 @@ Each call counts a host-level dispatch (``dispatch_count`` /
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -70,6 +71,14 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-9)
 
 
+@functools.lru_cache(maxsize=64)
+def _cosine_lanes(metrics: Tuple[str, ...], device: torch.device) -> torch.Tensor:
+    """[L] bool, True at the cosine lanes of a mixed bank: uploaded once per
+    (metrics, device), not once per search."""
+    return torch.tensor([m == "cosine" for m in metrics], device=device)
+
+
+# repro: device-region static[k, metric, prenormalized, topk, lane_rows]
 def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
                            prenormalized: bool, topk: TopK = None,
                            lane_rows: Optional[Sequence[int]] = None):
@@ -112,11 +121,12 @@ def _similarity_topk_lanes(db, valid, q, *, k: int, metric: Tuple[str, ...],
     s = s.transpose(0, 1)  # [Q, L, k]
     i = i.transpose(0, 1)
     if cos_scale is not None:
-        is_cos = torch.tensor([m == "cosine" for m in metrics], device=s.device)
-        s = torch.where(is_cos[None, :, None], s * cos_scale[:, None, None], s)
+        s = torch.where(_cosine_lanes(metrics, s.device)[None, :, None],
+                        s * cos_scale[:, None, None], s)
     return s, i
 
 
+# repro: device-region static[k, metric, prenormalized, lane_rows]
 def similarity_topk_lanes(db, valid, q, *, k: int,
                           metric: Union[str, Tuple[str, ...]] = "cosine",
                           prenormalized: bool = False,
@@ -131,6 +141,7 @@ def similarity_topk_lanes(db, valid, q, *, k: int,
                                   prenormalized=prenormalized, lane_rows=lane_rows)
 
 
+# repro: device-region static[k, metric, prenormalized]
 def similarity_topk(db, valid, q, *, k: int, metric: str = "cosine",
                     prenormalized: bool = False):
     """Single-store lookup (the reference's ``similarity_topk``, kernel B2):

@@ -187,7 +187,8 @@ def ssd_scan_plain(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
     rep = H // Bm.shape[2]
     xf, Bf, Cf = x.to(f32), Bm.to(f32), Cm.to(f32)
     if rep > 1:
-        Bf, Cf = Bf.repeat_interleave(rep, dim=2), Cf.repeat_interleave(rep, dim=2)
+        Bf = Bf.repeat_interleave(rep, dim=2, output_size=H)
+        Cf = Cf.repeat_interleave(rep, dim=2, output_size=H)
     dtf, A, D = dt.to(f32), A.to(f32), D.to(f32)
     L = min(chunk, S)
     pad = (-S) % L
@@ -311,7 +312,7 @@ def ssd_scan_bwd_plain(x, Bm, Cm, dt, A, D, dy, dstate=None, *, chunk: int = 128
     return dx.to(x.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), ddt, dA, dD
 
 
-def ssd_scan_cuda(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
+def ssd_scan_cuda(x, Bm, Cm, dt, A, D, *, chunk: int = 128):  # repro: device-region static[chunk]
     """Launch the Hopper kernel on the current stream (no synchronisation).
     Raises, launching nothing, on what it does not take: another device
     than an sm_90 card, x/Bm/Cm not all float32 or all bfloat16, dt/A/D
@@ -414,7 +415,7 @@ class SsdScanFn(torch.autograd.Function):
     where the state was not used, as in training)."""
 
     @staticmethod
-    def forward(ctx, x, Bm, Cm, dt, A, D, chunk):
+    def forward(ctx, x, Bm, Cm, dt, A, D, chunk):  # repro: device-region static[chunk]
         ctx.set_materialize_grads(False)
         y, state = ssd_scan_cuda(x, Bm, Cm, dt, A, D, chunk=chunk)
         ctx.save_for_backward(x, Bm, Cm, dt, A, D)

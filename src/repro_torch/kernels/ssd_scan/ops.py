@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels.ssd_scan import kernel as _kernel
 
 
-def ssd_scan(x, Bm, Cm, dt, A, D, *, chunk: int = 128):
+def ssd_scan(x, Bm, Cm, dt, A, D, *, chunk: int = 128):  # repro: device-region static[chunk]
     """x [B,S,H,P], Bm/Cm [B,S,G,N], dt [B,S,H] f32, A/D [H] f32
     -> (y [B,S,H,P] in x's dtype, final state [B,H,P,N] f32)."""
     if x.device.type in ("cpu", "meta"):

@@ -193,7 +193,7 @@ def despec_params_for_inference(specs):
     return tree_map_specs(one, specs)
 
 
-def _run(kind: str, cfg, args):
+def _run(kind: str, cfg, args):  # repro: device-region static[kind, cfg]
     if kind == "train":
         return make_train_step(cfg)(*args)
     if kind == "prefill":

@@ -105,7 +105,7 @@ def rope_angles(positions: torch.Tensor, theta: float, d: int) -> Tuple[torch.Te
     per theta (``transformer._run_stacks``)."""
     half = d // 2
     freq_exponents = torch.arange(half, dtype=F32, device=positions.device) / half
-    inv_freq = torch.tensor(theta, dtype=F32, device=positions.device) ** -freq_exponents
+    inv_freq = torch.full((), theta, dtype=F32, device=positions.device) ** -freq_exponents
     ang = positions.to(F32)[..., None] * inv_freq
     return torch.cos(ang), torch.sin(ang)
 
@@ -198,7 +198,7 @@ def embedding_specs(stacked: int = 0) -> dict:
 def embed(params, tokens, cfg):
     x = params["table"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 

@@ -188,7 +188,7 @@ def _dispatch_compute(params, cfg, x_flat, expert_idx, gates, capacity: int,
 
     if in_shard is None:
         dropped = torch.sum((~kept).to(F32))
-        total_assigned = torch.tensor(float(max(T * K, 1)), dtype=F32, device=dev)
+        total_assigned = torch.full((), float(max(T * K, 1)), dtype=F32, device=dev)
     else:
         assigned = in_shard[order]
         dropped = torch.sum((assigned & ~kept).to(F32))
@@ -204,7 +204,7 @@ def capacity_of(cfg, tokens: int, capacity_factor: float = 0.0) -> int:
     return max(int(math.ceil(tokens * mo.top_k / mo.num_experts * cf)), min(8, tokens))
 
 
-def moe_ffn(params, cfg, x: torch.Tensor,
+def moe_ffn(params, cfg, x: torch.Tensor,  # repro: device-region static[cfg, capacity_factor]
             capacity_factor: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, D] -> ([B, S, D], {"moe_drop_fraction": float32 scalar}).
     Under ``use_mesh`` with a ``model`` axis that divides the experts this
@@ -237,6 +237,7 @@ def batch_axes(mesh, B: int) -> Tuple[Tuple[str, ...], int]:
     return tuple(axes), n
 
 
+# repro: device-region static[cfg, mesh, capacity_factor]
 def _moe_ffn_sharded(params, cfg, x: torch.Tensor, mesh, capacity_factor: float = 0.0
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The expert-parallel form on ``mesh`` (see the module docstring)."""

@@ -153,8 +153,8 @@ def ssm_block(params, cfg, xin: torch.Tensor, *, cache: Optional[dict] = None,
         x, Bm, Cm = _split_xbc(cfg, xBC_t[:, None])
         rep = H // s.ngroups
         x = x[:, 0].to(F32)  # [B, H, P]
-        Bm = Bm[:, 0].repeat_interleave(rep, dim=1).to(F32)  # [B, H, N]
-        Cm = Cm[:, 0].repeat_interleave(rep, dim=1).to(F32)
+        Bm = Bm[:, 0].repeat_interleave(rep, dim=1, output_size=H).to(F32)  # [B, H, N]
+        Cm = Cm[:, 0].repeat_interleave(rep, dim=1, output_size=H).to(F32)
         dt = F.softplus(dt_raw[:, 0].to(F32) + dt_bias)  # [B, H]
         h = cache["ssm"].to(F32) * torch.exp(dt * A)[:, :, None, None] + torch.einsum(
             "bhn,bhp,bh->bhpn", Bm, x, dt)

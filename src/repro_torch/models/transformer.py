@@ -609,7 +609,7 @@ def _forward(params, cfg, batch):
 
 
 @torch.no_grad()
-def forward(params, cfg, batch):
+def forward(params, cfg, batch):  # repro: device-region static[cfg]
     """The stack over ``batch`` without a cache: the final-normed hidden
     states [B, S, d] and the metrics (a MoE model's ``moe_drop_fraction``,
     the mean over its MoE layers; {} otherwise)."""
@@ -656,7 +656,7 @@ def loss_fn(params, cfg, batch):
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch, cache):
+def prefill(params, cfg, batch, cache):  # repro: device-region static[cfg]
     """Run the prompt ``batch["tokens"]`` [B, S] (audio: [B, K, S]; vision
     may add ``batch["vision_embeds"]``) through the stack, filling ``cache``
     in place (attention: rows 0..S-1, the rest cleared; SSM: the conv tail
@@ -670,7 +670,7 @@ def prefill(params, cfg, batch, cache):
 
 
 @torch.no_grad()
-def decode_step(params, cfg, tokens, pos, cache):
+def decode_step(params, cfg, tokens, pos, cache):  # repro: device-region static[cfg]
     """One decode step. tokens [B, 1] (audio: [B, K, 1]), pos [B] (the row
     each new token occupies; the SSM family does not read it); the cache is
     written in place. Returns float32 logits [B, V] (audio: [B, K, V]) and

@@ -78,8 +78,9 @@ def abstract_train_state(cfg) -> Tuple[TrainState, TrainState]:
 
 def _on(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """The batch's arrays (numpy from the loader, or tensors) on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-                               device=device) for k, v in batch.items()}
+    return {k: torch.as_tensor(  # repro: noqa[RA203] — the step's input batch, uploaded first
+        np.asarray(v) if not isinstance(v, torch.Tensor) else v, device=device)
+        for k, v in batch.items()}
 
 
 def _microbatch_grads(cfg, params, batch, accum_dtype):
